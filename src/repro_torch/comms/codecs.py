@@ -1,0 +1,171 @@
+"""Wire codecs (``Compressor``) for sync payloads (PyTorch counterpart of
+``repro.comms.codecs``).
+
+A :class:`Compressor` defines the WIRE FORMAT of a payload buffer
+independently of the aggregation rule.  Codecs see payloads as
+``(rows, ...)`` tensors with a leading worker axis; trailing dims are
+flattened internally.  The int8 codec runs the CUDA kernels of
+:mod:`repro_torch.kernels.comms` on the card (their plain versions on the
+CPU).  This slice registers identity and int8; sign (ROADMAP B4–B5) and
+top-k (B6) come later.
+"""
+from __future__ import annotations
+
+import abc
+from typing import Dict, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.comms.wire import WireArray, dtype_name
+from repro_torch.device import recip_f32
+from repro_torch.kernels import comms as _kernels
+from repro_torch.kernels.ref import INV127
+
+
+class Compressor(abc.ABC):
+    """Wire codec: encode a payload to its wire arrays, decode them back.
+
+    ``wire_reduce`` marks a codec whose :meth:`reduce` implements the
+    compressed collective; ``layout_free`` marks one whose reduce does not
+    depend on the payload layout (bucketization can be skipped).  No
+    ported codec carries an error-feedback residual: that comes with top-k
+    (ROADMAP B6)."""
+
+    name = "compressor"
+    wire_reduce = False
+    layout_free = False
+
+    @abc.abstractmethod
+    def encode(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """(rows, ...) payload -> the tensors that cross the wire."""
+
+    @abc.abstractmethod
+    def decode(self, wire: Dict[str, torch.Tensor],
+               like: torch.Tensor) -> torch.Tensor:
+        """Wire tensors -> f32 payload shaped like ``like``."""
+
+    @abc.abstractmethod
+    def wire_spec(self, length: int, dtype) -> Tuple[WireArray, ...]:
+        """Static wire arrays for ONE worker's ``length``-element payload."""
+
+    def roundtrip(self, x: torch.Tensor) -> torch.Tensor:
+        """What the receiver reconstructs from each worker's payload."""
+        return self.decode(self.encode(x), x).to(x.dtype)
+
+    def reduce(self, x: torch.Tensor, ops) -> torch.Tensor:
+        """The compressed collective through ``ops`` (a WireOps): the
+        group aggregate of ``x``, broadcast over the member rows."""
+        raise NotImplementedError(
+            f"{type(self).__name__} has no compressed-collective form")
+
+    def __repr__(self):
+        return f"{type(self).__name__}()"
+
+
+def _rows(x: torch.Tensor) -> torch.Tensor:
+    return x.reshape(x.shape[0], -1)
+
+
+class IdentityCompressor(Compressor):
+    """No compression — the payload crosses the wire at its own dtype."""
+
+    name = "identity"
+    wire_reduce = True
+    layout_free = True
+
+    def encode(self, x):
+        return {"value": x}
+
+    def decode(self, wire, like):
+        return wire["value"]
+
+    def reduce(self, x, ops):
+        return ops.mean(x)
+
+    def wire_spec(self, length, dtype):
+        return (WireArray("value", (length,), dtype_name(dtype)),)
+
+
+class Int8Compressor(Compressor):
+    """Per-block symmetric int8 (block max-scale): 1 byte per element plus
+    one f32 scale per ``block``."""
+
+    name = "int8"
+    wire_reduce = True
+
+    def __init__(self, block: int = 256):
+        self.block = int(block)
+
+    def encode(self, x):
+        q, scale = _kernels.int8_quantize(
+            _rows(x).to(torch.float32).contiguous(), block=self.block)
+        return {"q": q, "scale": scale}
+
+    def decode(self, wire, like):
+        y = _kernels.int8_dequantize(wire["q"], wire["scale"],
+                                     block=self.block)
+        return y.reshape(like.shape)
+
+    def reduce(self, x, ops):
+        """The int8 compressed allreduce: one group-max scale per block,
+        quantize against it, SUM the int8 payloads in an int32 accumulator
+        (exact), one decode at the end: qsum * scale / count."""
+        x2 = _rows(x).to(torch.float32).contiguous()
+        r, c = x2.shape
+        nb = -(-c // self.block)
+        pad = nb * self.block - c
+        amax = F.pad(x2.abs(), (0, pad)).reshape(r, nb, self.block) \
+            .amax(dim=-1)                                      # (r, nb)
+        # division rule: amax / 127 as XLA runs it, amax * f32(1/127)
+        scale = ops.max(amax) * INV127                         # group scale
+        q = _kernels.int8_scale_quantize(x2, scale, block=self.block)
+        # int32 accumulator: ops.sum keeps the operand's dtype
+        qsum = ops.sum(q.to(torch.int32))
+        y = (F.pad(qsum.to(torch.float32), (0, pad))
+             .reshape(r, nb, self.block) * scale[..., None]) \
+            .reshape(r, nb * self.block)[:, :c]
+        count = ops.count()
+        # division rule: an unmasked count is a constant, which XLA folds
+        # into a reciprocal multiply; a masked count is a real division
+        y = y * recip_f32(count) if isinstance(count, float) else y / count
+        return y.reshape(x.shape).to(x.dtype)
+
+    def wire_spec(self, length, dtype):
+        nb = -(-length // self.block)
+        return (WireArray("q", (length,), "int8"),
+                WireArray("scale", (nb,), "float32"))
+
+    def __repr__(self):
+        return f"Int8Compressor(block={self.block})"
+
+
+COMPRESSORS = {
+    "identity": IdentityCompressor,
+    "none": IdentityCompressor,
+    "int8": Int8Compressor,
+    "q8": Int8Compressor,
+}
+# registered in the JAX package, not ported yet: name -> ROADMAP item
+_NOT_PORTED = {"sign": "B4-B5", "1bit": "B4-B5", "topk": "B6"}
+
+CompressorLike = Union[str, Compressor, None]
+
+
+def make_compressor(spec: CompressorLike = None) -> Compressor:
+    """Resolve a compressor from an instance, a registry name, or None
+    (-> IdentityCompressor).  Construct ``Int8Compressor(block=...)`` for
+    another block size."""
+    if isinstance(spec, Compressor):
+        return spec
+    if spec is None:
+        return IdentityCompressor()
+    name = spec.lower()
+    if name in _NOT_PORTED:
+        raise NotImplementedError(
+            f"compressor {spec!r} is not ported yet (ROADMAP "
+            f"{_NOT_PORTED[name]}); the port has {sorted(COMPRESSORS)}")
+    if name not in COMPRESSORS:
+        raise KeyError(f"unknown compressor {spec!r}; "
+                       f"known: {sorted(COMPRESSORS)}")
+    return COMPRESSORS[name]()

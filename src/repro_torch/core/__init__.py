@@ -1,0 +1,21 @@
+"""Hierarchical SGD in PyTorch: engine, topologies, aggregators, groupings
+(counterpart of ``repro.core``)."""
+from repro_torch.core.aggregators import (Aggregator, MeanAggregator,
+                                          make_aggregator)
+from repro_torch.core.executors import Executor, SimExecutor, make_executor
+from repro_torch.core.grouping import Grouping, contiguous, random_grouping
+from repro_torch.core.hierarchy import HierarchySpec, local_sgd, two_level
+from repro_torch.core.hsgd import (HSGD, EngineConfig, HSGDState, Round,
+                                   compile_schedule)
+from repro_torch.core.topology import (GroupedTopology, SyncEvent, Topology,
+                                       UniformTopology, make_topology)
+
+__all__ = [
+    "HSGD", "EngineConfig", "HSGDState", "Round", "compile_schedule",
+    "Executor", "SimExecutor", "make_executor",
+    "Topology", "SyncEvent", "GroupedTopology", "UniformTopology",
+    "make_topology",
+    "Aggregator", "MeanAggregator", "make_aggregator",
+    "HierarchySpec", "local_sgd", "two_level",
+    "Grouping", "contiguous", "random_grouping",
+]

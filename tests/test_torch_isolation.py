@@ -1,0 +1,109 @@
+"""The port stands alone: no file of ``src/repro_torch`` and not
+``chip_smoke.py`` imports JAX or the JAX package, importing the port loads
+no JAX, and every entry point refuses a CUDA device that is not there
+instead of carrying on on the CPU."""
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "src" / "repro_torch"
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(encoding="utf-8"), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.module \
+                and node.level == 0:
+            yield node.module
+
+
+def test_port_files_import_no_jax_and_no_reference():
+    files = _port_files()
+    assert len(files) >= 16
+    bad = [(str(p.relative_to(ROOT)), m) for p in files
+           for m in _imported_modules(p)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_the_scan_sees_imports():
+    """Guard the guard: the scan must find the port's own imports."""
+    mods = set(_imported_modules(PORT / "core" / "hsgd.py"))
+    assert "torch" in mods and "repro_torch.core.topology" in mods
+
+
+def test_importing_the_port_loads_no_jax():
+    code = ("import sys\n"
+            "import repro_torch.core, repro_torch.comms, repro_torch.data\n"
+            "import repro_torch.models, repro_torch.optim\n"
+            "import repro_torch.kernels.comms, repro_torch.kernels._build\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.fixture
+def no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; this checks the refusal "
+                    "without one")
+
+
+def test_entry_points_refuse_missing_cuda(no_cuda):
+    from repro_torch.core import HSGD, make_topology
+    from repro_torch.device import resolve_device
+    from repro_torch.models import (SimpleConfig, SimpleModel,
+                                    params_from_numpy, params_to_numpy)
+    from repro_torch.optim import sgd
+
+    model = SimpleModel(SimpleConfig(kind="linear", input_dim=4,
+                                     num_classes=3))
+    engine = HSGD(model.loss, sgd(0.1),
+                  make_topology("two_level", n=4, N=2, G=4, I=2))
+    gen = torch.Generator().manual_seed(0)
+    params = model.init(gen, device="cpu")
+    calls = [
+        lambda: resolve_device(),
+        lambda: model.init(gen),
+        lambda: model.init(gen, device="cuda"),
+        lambda: params_from_numpy(params_to_numpy(params)),
+        lambda: engine.init(gen, model.init),
+        lambda: engine.init_from_params(params),
+        lambda: engine.init_from_params(params, device="cuda"),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
+
+
+def test_chip_smoke_refuses_without_cuda(no_cuda, tmp_path):
+    """Without a card, and alone in a directory, chip_smoke.py exits
+    non-zero and prints no result line."""
+    alone = tmp_path / "alone"
+    alone.mkdir()
+    shutil.copy(ROOT / "chip_smoke.py", alone / "chip_smoke.py")
+    for cwd in (ROOT, alone):
+        out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode != 0
+        assert '"ok"' not in out.stdout
