@@ -6,14 +6,16 @@ form only — the mesh forms come with ROADMAP A8).
 * :meth:`SimWireOps.sum` — dtype-preserving group sum (int32 payloads
   accumulate in int32);
 * :meth:`SimWireOps.max` — group max of non-negative block statistics;
-* :meth:`SimWireOps.count` — participants per group.
+* :meth:`SimWireOps.count` — participants per group;
+* :meth:`SimWireOps.gathered` — the group's encoded payloads stacked for
+  a codec's own reduction (the sign vote).
 
 Masks are 0/1 participation weights.  Group results come back broadcast
 over the worker rows of the input, as ``Topology.aggregate`` does.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple, Union
+from typing import Callable, Sequence, Tuple, Union
 
 import torch
 
@@ -97,3 +99,20 @@ class SimWireOps:
         c = m.sum(dim=self._axes(), keepdim=True, dtype=torch.float32)
         c = c.expand(self.gs).reshape(-1, 1)
         return torch.maximum(c, denominator_floor(torch.float32, c.device))
+
+    def gathered(self, fn: Callable, *arrays):
+        """Group-stack the (n, ...) wire arrays to (outer, members, ...),
+        call ``fn(*stacked, member_mask)`` (member axis at -2; the mask is
+        an (outer, members) f32 tensor or None) and broadcast its
+        (outer, ...) result back over the member rows."""
+        g = [a.reshape((self.outer, self.members) + tuple(a.shape[1:]))
+             for a in arrays]
+        wmask = None
+        if self.mask is not None:
+            wmask = torch.as_tensor(self.mask, device=arrays[0].device).to(
+                torch.float32).reshape(self.outer, self.members)
+        out = fn(*g, wmask)
+        out = out[:, None].expand((self.outer, self.members)
+                                  + tuple(out.shape[1:]))
+        return out.reshape((self.outer * self.members,)
+                           + tuple(out.shape[2:]))

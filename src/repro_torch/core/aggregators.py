@@ -8,10 +8,10 @@ collective a topology knows how to do — a weighted mean:
     means    = {k: weighted_mean(v) for k, v in payloads.items()}
     new_x    = agg.decode(means, x)   # back to x.dtype
 
-This slice ports the segment form (in-array means over the worker axis,
-what the sim executor runs) and the plain mean rule.  The compressed,
-weighted and sign rules come with ROADMAP item A2's remainder; the
-named-axis forms come with the mesh executor (ROADMAP A8).
+Ported here: the segment form (in-array means over the worker axis, what
+the sim executor runs) and every rule of the reference: the plain mean,
+the compressed (bf16) mean, the fixed-weight mean and the SignSGD vote.
+The named-axis forms come with the mesh executor (ROADMAP A8).
 """
 from __future__ import annotations
 
@@ -20,6 +20,8 @@ from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
+
+from repro_torch.device import recip_f32
 
 
 def _torch_dtype(dtype) -> torch.dtype:
@@ -58,35 +60,92 @@ class MeanAggregator(Aggregator):
         return f"MeanAggregator({str(self.accum_dtype).replace('torch.', '')})"
 
 
-AGGREGATORS = {"mean": MeanAggregator}
-# registered in the JAX package, not ported yet
-_NOT_PORTED = ("compressed", "bf16", "weighted", "sign", "signsgd")
+class CompressedAggregator(MeanAggregator):
+    """Mean with a compressed payload (default bf16): the payload and the
+    accumulation of the mean are in ``dtype``."""
+
+    def __init__(self, dtype: str = "bfloat16"):
+        super().__init__(dtype)
+
+    def __repr__(self):
+        return ("CompressedAggregator("
+                f"{str(self.accum_dtype).replace('torch.', '')})")
+
+
+class WeightedAggregator(Aggregator):
+    """Weighted mean with fixed per-worker weights (e.g. dataset-size
+    proportional FedAvg weights).  Weights multiply the participation
+    mask, so a masked sync means over ``mask * weights``."""
+
+    def __init__(self, weights, dtype: str = "float32"):
+        self.weights = np.asarray(weights, np.float64)
+        if self.weights.ndim != 1 or (self.weights < 0).any() or \
+                self.weights.sum() <= 0:
+            raise ValueError("WeightedAggregator: weights must be a 1-D "
+                             "non-negative vector with a positive sum")
+        self.accum_dtype = _torch_dtype(dtype)
+
+    def worker_weights(self, n: int) -> np.ndarray:
+        if len(self.weights) != n:
+            raise ValueError(f"WeightedAggregator has {len(self.weights)} "
+                             f"weights for {n} workers")
+        return self.weights
+
+    def __repr__(self):
+        return f"WeightedAggregator(n={len(self.weights)})"
+
+
+class SignSGDAggregator(Aggregator):
+    """Majority-vote 1-bit rule (Bernstein et al.) on the sync payload:
+    each participant sends sign(x) and |x|; the aggregate is
+    mean|x| * sign(mean sign), exact ties giving 0.  Lossy by design."""
+
+    def __init__(self, dtype: str = "float32"):
+        self.accum_dtype = _torch_dtype(dtype)
+
+    def encode(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        xf = x.to(self.accum_dtype)
+        return {"sign": torch.sign(xf), "magnitude": xf.abs()}
+
+    def decode(self, means: Dict[str, torch.Tensor],
+               like: torch.Tensor) -> torch.Tensor:
+        return (means["magnitude"] * torch.sign(means["sign"])).to(
+            like.dtype)
+
+    def __repr__(self):
+        return "SignSGDAggregator()"
+
+
+AGGREGATORS = {
+    "mean": MeanAggregator,
+    "compressed": CompressedAggregator,
+    "bf16": CompressedAggregator,
+    "weighted": WeightedAggregator,
+    "sign": SignSGDAggregator,
+    "signsgd": SignSGDAggregator,
+}
 
 AggregatorLike = Union[str, Aggregator, None]
 
 
 def make_aggregator(spec: AggregatorLike = None, *,
                     sync_dtype: Optional[str] = None, **kwargs) -> Aggregator:
-    """Resolve an aggregator from an instance, a registry name, or None."""
+    """Resolve an aggregator from an instance, a registry name, or the
+    ``sync_dtype`` flag (``'bfloat16'`` -> CompressedAggregator)."""
     if isinstance(spec, Aggregator):
         if sync_dtype is not None:
             raise ValueError(
                 f"sync_dtype={sync_dtype!r} only applies when constructing "
                 f"by name; got the instance {spec!r}")
-        assert not kwargs, "kwargs only apply when constructing by name"
+        if kwargs:
+            raise ValueError("kwargs only apply when constructing by name")
         return spec
     if spec is None:
         if sync_dtype is not None and \
                 _torch_dtype(sync_dtype) != torch.float32:
-            raise NotImplementedError(
-                f"sync_dtype={sync_dtype!r} selects the compressed "
-                "aggregator, which is not ported yet (ROADMAP A2)")
+            return CompressedAggregator(sync_dtype)
         return MeanAggregator()
     name = spec.lower()
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"aggregator {spec!r} is not ported yet (ROADMAP A2); the port "
-            f"has {sorted(AGGREGATORS)}")
     if name not in AGGREGATORS:
         raise KeyError(f"unknown aggregator {spec!r}; "
                        f"known: {sorted(AGGREGATORS)}")
@@ -102,15 +161,40 @@ def denominator_floor(acc: torch.dtype, device=None) -> torch.Tensor:
     return torch.tensor(torch.finfo(acc).tiny, dtype=acc, device=device)
 
 
+def _sum_in(v: torch.Tensor, axes, acc: torch.dtype) -> torch.Tensor:
+    """Sum of ``v`` over ``axes`` (keepdim) accumulated in ``acc``.
+
+    A float32 sum is ``torch.sum``.  A narrower ``acc`` (bf16, f16) is
+    rounded to ``acc`` after every add, one slice after the other in the
+    row-major order of ``axes``: that is how XLA reduces in such a type,
+    while ``torch.sum`` would accumulate in float32 and round once."""
+    if acc == torch.float32:
+        return v.sum(dim=axes, keepdim=True, dtype=acc)
+    keep = [d for d in range(v.ndim) if d not in axes]
+    slices = v.to(acc).permute(list(axes) + keep).reshape(
+        (-1,) + tuple(v.shape[d] for d in keep))
+    out = torch.zeros(slices.shape[1:], dtype=acc, device=v.device)
+    for piece in slices:
+        out = out + piece
+    return out.reshape([1 if d in axes else v.shape[d]
+                        for d in range(v.ndim)])
+
+
 def axis_weighted_mean(v: torch.Tensor, w: Optional[torch.Tensor], axes,
                        acc: torch.dtype) -> torch.Tensor:
     """Mean of ``v`` over ``axes`` (keepdim), optionally weighted by ``w``
-    (broadcastable), accumulated in ``acc``."""
+    (broadcastable), accumulated in ``acc`` (see :func:`_sum_in`)."""
     axes = tuple(axes)
     if w is None:
-        return v.to(acc).mean(dim=axes, keepdim=True, dtype=acc)
-    num = (v.to(acc) * w).sum(dim=axes, keepdim=True, dtype=acc)
-    den = torch.maximum(w.sum(dim=axes, keepdim=True, dtype=acc),
+        if acc == torch.float32:
+            return v.to(acc).mean(dim=axes, keepdim=True, dtype=acc)
+        count = 1
+        for d in axes:
+            count *= v.shape[d]
+        # division rule: XLA multiplies by the f32 reciprocal of the count
+        return _sum_in(v, axes, acc) * recip_f32(count)
+    num = _sum_in(v.to(acc) * w, axes, acc)
+    den = torch.maximum(_sum_in(w, axes, acc),
                         denominator_floor(acc, v.device))
     return num / den
 

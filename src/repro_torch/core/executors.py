@@ -64,12 +64,13 @@ class Executor(abc.ABC):
 
 def _wire_eligible(plan, event: SyncEvent) -> bool:
     """Can this event's sync run as the codec's compressed collective?
-    Only the default lowering qualifies — a uniform hierarchy, the
-    aggregator's stock f32 encode/mean/decode and no static per-worker or
-    per-event weights; anything else takes the legacy encode→decode→reduce
-    roundtrip.  Runtime masks are supported."""
+    Only the default lowering qualifies — bucketized payloads, a uniform
+    hierarchy, the aggregator's stock f32 encode/mean/decode and no static
+    per-worker or per-event weights; anything else takes the legacy
+    encode→decode→reduce roundtrip.  Runtime masks are supported."""
     comms = plan.comms
-    if comms is None or not (comms.wire_reduce and comms.codec.wire_reduce):
+    if comms is None or not (comms.wire_reduce and comms.codec.wire_reduce
+                             and comms.bucket):
         return False
     topo = plan.topology
     if getattr(topo, "spec", None) is None:       # grouped: segment means

@@ -1,7 +1,8 @@
 """Non-IID federated data for the paper-experiment reproduction.
 
-Numpy-only: the part of ``repro.data.federated`` the H-SGD path needs
-(``make_classification``, ``label_shard_partition``, ``FederatedDataset``),
+Numpy-only: the part of ``repro.data.federated`` the H-SGD experiments
+need (``make_classification``, ``label_shard_partition``,
+``dirichlet_partition``, ``FederatedDataset``),
 copied and held equal to it by the tests.  The paper partitions its
 datasets by label across workers (§6, Appendix E); offline we generate a
 K-class Gaussian-mixture task and partition it the same way.
@@ -58,6 +59,31 @@ def label_shard_partition(y: np.ndarray, worker_labels: Sequence[Sequence[int]],
         rng.shuffle(idx)
         for k, chunk in enumerate(np.array_split(idx, len(js))):
             parts[js[k]].extend(chunk.tolist())
+    return [np.asarray(sorted(p), np.int64) for p in parts]
+
+
+def dirichlet_partition(y: np.ndarray, n_workers: int, alpha: float,
+                        seed: int = 0) -> List[np.ndarray]:
+    """Label-skew partition: per class, worker proportions ~ Dir(alpha)."""
+    if n_workers < 1:
+        raise ValueError(
+            f"dirichlet_partition needs n_workers >= 1, got {n_workers} — "
+            f"pass the topology's n (prod of its group sizes)")
+    if not np.isfinite(alpha) or alpha <= 0:
+        raise ValueError(
+            f"dirichlet_partition needs alpha > 0, got {alpha!r} — the "
+            f"Dirichlet concentration must be positive (small alpha ≈ 0.1 "
+            f"gives strong label skew, large alpha ≈ 100 is near-IID)")
+    rng = np.random.default_rng(seed)
+    classes = np.unique(y)
+    parts: List[List[int]] = [[] for _ in range(n_workers)]
+    for c in classes:
+        idx = np.nonzero(y == c)[0]
+        rng.shuffle(idx)
+        props = rng.dirichlet([alpha] * n_workers)
+        cuts = (np.cumsum(props)[:-1] * len(idx)).astype(int)
+        for j, chunk in enumerate(np.split(idx, cuts)):
+            parts[j].extend(chunk.tolist())
     return [np.asarray(sorted(p), np.int64) for p in parts]
 
 

@@ -20,8 +20,8 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-# -O3 and IEEE arithmetic: no --use_fast_math (see the division rule in
-# csrc/int8_codec.cu)
+# -O3 and IEEE arithmetic: no --use_fast_math (see the division rules in
+# csrc/int8_codec.cu and csrc/sign_codec.cu)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -34,6 +34,10 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "hsgd_int8_quantize": (_P, _P, _P, _I64, _I64, _I32, _P),
         "hsgd_int8_scale_quantize": (_P, _P, _P, _I64, _I64, _I32, _P),
         "hsgd_int8_dequantize": (_P, _P, _P, _I64, _I64, _I32, _P),
+    },
+    "sign_codec": {
+        "hsgd_sign_pack": (_P, _P, _P, _I64, _I64, _I32, _P),
+        "hsgd_sign_unpack": (_P, _P, _P, _I64, _I64, _I32, _P),
     },
 }
 

@@ -1,11 +1,14 @@
-"""The int8 wire codec's kernels: wrappers over ``csrc/int8_codec.cu``.
+"""The wire codecs' kernels: wrappers over ``csrc/int8_codec.cu`` and
+``csrc/sign_codec.cu``.
 
 Counterparts of the Pallas TPU kernels in ``repro.kernels.comms``:
 
 * :func:`int8_quantize` / :func:`int8_dequantize` — per-block symmetric
   int8 (block max-scale), one f32 scale per block;
 * :func:`int8_scale_quantize` — quantize against a caller-supplied (shared
-  group-max) scale, the encode side of the int8 compressed allreduce.
+  group-max) scale, the encode side of the int8 compressed allreduce;
+* :func:`sign_pack` / :func:`sign_unpack` — 1-bit signs, 8 per byte, with
+  one f32 ``mean|x|`` per block.
 
 Each wrapper checks its inputs and raises on anything its kernel does not
 take, allocates its outputs, and then either launches the CUDA kernel on
@@ -22,9 +25,14 @@ import torch
 
 from repro_torch.kernels import ref
 
+# the largest sign block: its power-of-two padding (4 bytes an element)
+# must fit the shared memory of one CTA
+SIGN_MAX_BLOCK = 1 << 15
+
 # launches of each CUDA kernel since the last reset_launch_counts()
 launch_counts: Dict[str, int] = {
-    "int8_quantize": 0, "int8_dequantize": 0, "int8_scale_quantize": 0}
+    "int8_quantize": 0, "int8_dequantize": 0, "int8_scale_quantize": 0,
+    "sign_pack": 0, "sign_unpack": 0}
 
 
 def reset_launch_counts() -> None:
@@ -64,9 +72,18 @@ def _same_device(name: str, *ts: torch.Tensor) -> None:
                          f"{[str(t.device) for t in ts]}")
 
 
-def _launch(name: str, entry: str, device: torch.device, *args) -> None:
+def _check_sign_block(name: str, block: int) -> int:
+    block = _check_block(name, block)
+    if block % 8 or block > SIGN_MAX_BLOCK:
+        raise ValueError(f"{name}: block must be a multiple of 8 and at "
+                         f"most {SIGN_MAX_BLOCK}, got {block}")
+    return block
+
+
+def _launch(name: str, source: str, entry: str, device: torch.device,
+            *args) -> None:
     from repro_torch.kernels._build import load
-    fn = getattr(load("int8_codec"), entry)
+    fn = getattr(load(source), entry)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*args, stream)
@@ -90,8 +107,8 @@ def int8_quantize(x: torch.Tensor, *, block: int = 256
     scale = torch.empty((r, -(-c // block)), dtype=torch.float32,
                         device=x.device)
     if x.numel():
-        _launch(name, "hsgd_int8_quantize", x.device, x.data_ptr(),
-                q.data_ptr(), scale.data_ptr(), r, c, block)
+        _launch(name, "int8_codec", "hsgd_int8_quantize", x.device,
+                x.data_ptr(), q.data_ptr(), scale.data_ptr(), r, c, block)
     return q, scale
 
 
@@ -108,8 +125,8 @@ def int8_dequantize(q: torch.Tensor, scale: torch.Tensor, *,
         return ref.int8_dequant_ref(q, scale, block)
     y = torch.empty((r, c), dtype=torch.float32, device=q.device)
     if q.numel():
-        _launch(name, "hsgd_int8_dequantize", q.device, q.data_ptr(),
-                scale.data_ptr(), y.data_ptr(), r, c, block)
+        _launch(name, "int8_codec", "hsgd_int8_dequantize", q.device,
+                q.data_ptr(), scale.data_ptr(), y.data_ptr(), r, c, block)
     return y
 
 
@@ -127,6 +144,51 @@ def int8_scale_quantize(x: torch.Tensor, scale: torch.Tensor, *,
         return ref.int8_scale_quant_ref(x, scale, block)
     q = torch.empty((r, c), dtype=torch.int8, device=x.device)
     if x.numel():
-        _launch(name, "hsgd_int8_scale_quantize", x.device, x.data_ptr(),
-                scale.data_ptr(), q.data_ptr(), r, c, block)
+        _launch(name, "int8_codec", "hsgd_int8_scale_quantize", x.device,
+                x.data_ptr(), scale.data_ptr(), q.data_ptr(), r, c, block)
     return q
+
+
+def sign_pack(x: torch.Tensor, *, block: int = 1024
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x f32 (R, C) -> (bits uint8 (R, nb*block/8), scale f32 (R, nb)),
+    nb = ceil(C/block); the padding of a ragged last block packs as +."""
+    name = "sign_pack"
+    block = _check_sign_block(name, block)
+    _check(name, "x", x, torch.float32)
+    if x.device.type == "cpu":
+        return ref.sign_pack_ref(x, block)
+    r, c = x.shape
+    nb = -(-c // block)
+    bits = torch.empty((r, nb * block // 8), dtype=torch.uint8,
+                       device=x.device)
+    scale = torch.empty((r, nb), dtype=torch.float32, device=x.device)
+    if x.numel():
+        _launch(name, "sign_codec", "hsgd_sign_pack", x.device,
+                x.data_ptr(), bits.data_ptr(), scale.data_ptr(), r, c, block)
+    return bits, scale
+
+
+def sign_unpack(bits: torch.Tensor, scale: torch.Tensor, *, size: int,
+                block: int = 1024) -> torch.Tensor:
+    """(bits uint8 (R, nb*block/8), scale f32 (R, nb)) -> x f32 (R, size):
+    ``+scale`` where the bit is set, ``-scale`` where clear."""
+    name = "sign_unpack"
+    block = _check_sign_block(name, block)
+    size = int(size)
+    if size < 0:
+        raise ValueError(f"{name}: size must be >= 0, got {size}")
+    nb = -(-size // block)
+    _check(name, "bits", bits, torch.uint8)
+    r = bits.shape[0]
+    _check(name, "bits", bits, torch.uint8, (r, nb * block // 8))
+    _check(name, "scale", scale, torch.float32, (r, nb))
+    _same_device(name, bits, scale)
+    if bits.device.type == "cpu":
+        return ref.sign_unpack_ref(bits, scale, size, block)
+    y = torch.empty((r, size), dtype=torch.float32, device=bits.device)
+    if y.numel():
+        _launch(name, "sign_codec", "hsgd_sign_unpack", bits.device,
+                bits.data_ptr(), scale.data_ptr(), y.data_ptr(), r, size,
+                block)
+    return y

@@ -8,9 +8,25 @@ each CUDA kernel bitwise against them on the card.  Every operation here
 is chosen so that CPU, card and the jitted reference round identically:
 
 * Rounding rule: ``torch.round`` rounds half to even, like ``jnp.round``.
-* Division rule: the scale is ``amax * f32(1/127)`` (XLA's folded form of
-  ``amax / 127``, see :func:`repro_torch.device.recip_f32`), and ``inv``
-  is a true division ``1 / scale``, then ``x * inv`` — never ``x / scale``.
+* Division rule: the int8 scale is ``amax * f32(1/127)`` (XLA's folded
+  form of ``amax / 127``, see :func:`repro_torch.device.recip_f32`), and
+  ``inv`` is a true division ``1 / scale``, then ``x * inv`` — never
+  ``x / scale``.  The sign scale divides the block's sum by its real
+  count held in a TENSOR on the input's device: PyTorch's CUDA ``x / c``
+  with a Python-float ``c`` multiplies by the reciprocal, while a division
+  by a device tensor is an IEEE division on CPU and card alike, as the
+  Pallas kernel's division by a loaded value is.
+* Summation rule: the sign scale is ``mean|x|``, a float sum, so its bits
+  depend on the order of the adds.  The port fixes one order on every
+  device: zero-pad each block to the next power of two ``P``, then sum
+  ``|x|`` by the halving tree ``w = P; while w > 1: w //= 2;
+  s = s[..., :w] + s[..., w:2*w]`` (element i with element i + w at every
+  level).  ``csrc/sign_codec.cu`` adds the same pairs.  XLA sums in
+  another order, so the scales agree with the JAX package only to a few
+  ulp.
+* Bit rule: bit k of byte j is ``x[8j+k] >= 0``, least significant bit
+  first; -0.0 counts as +, NaN as -, and the zero padding of a ragged
+  last block as + (the reference ships those bytes too).
 """
 from __future__ import annotations
 
@@ -22,6 +38,7 @@ import torch.nn.functional as F
 from repro_torch.device import recip_f32
 
 INV127 = recip_f32(127.0)
+_SHIFT8 = tuple(range(8))
 
 
 def _blocked(x: torch.Tensor, block: int) -> Tuple[torch.Tensor, int]:
@@ -68,3 +85,52 @@ def int8_scale_quant_ref(x: torch.Tensor, scale: torch.Tensor,
     xb, nb = _blocked(x, block)
     q = torch.clamp(torch.round(xb * _inv(scale)[..., None]), -127, 127)
     return q.to(torch.int8).reshape(r, nb * block)[:, :c].contiguous()
+
+
+def _pow2(n: int) -> int:
+    """The least power of two >= n."""
+    return 1 << (int(n) - 1).bit_length()
+
+
+def _sign_counts(cols: int, block: int, device) -> torch.Tensor:
+    """(nb,) f32 tensor: the real entries of each block (the last may be
+    ragged) — the divisor of the block mean, on ``device``."""
+    nb = -(-cols // block)
+    counts = torch.full((nb,), float(block), dtype=torch.float32,
+                        device=device)
+    if nb:
+        counts[-1] = float(cols - (nb - 1) * block)
+    return counts
+
+
+def sign_pack_ref(x: torch.Tensor, block: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """1-bit signs and block mean magnitudes: (bits uint8
+    (R, nb*block/8), scale f32 (R, nb)), by the bit, summation and
+    division rules above."""
+    r, c = x.shape
+    xb, nb = _blocked(x, block)                                # (R, nb, B)
+    p = _pow2(block)
+    s = F.pad(xb.abs(), (0, p - block))
+    w = p
+    while w > 1:
+        w //= 2
+        s = s[..., :w] + s[..., w:2 * w]
+    scale = s[..., 0] / _sign_counts(c, block, x.device)
+    shift = torch.tensor(_SHIFT8, dtype=torch.int32, device=x.device)
+    bits = (xb >= 0).to(torch.int32).reshape(r, nb * block // 8, 8)
+    packed = (bits << shift).sum(dim=-1, dtype=torch.int32)
+    return packed.to(torch.uint8), scale
+
+
+def sign_unpack_ref(bits: torch.Tensor, scale: torch.Tensor, size: int,
+                    block: int) -> torch.Tensor:
+    """``(2*bit - 1) * scale`` per element: (R, nb*block/8) uint8 and
+    (R, nb) f32 -> (R, size) f32."""
+    r = bits.shape[0]
+    nb = -(-size // block)
+    shift = torch.tensor(_SHIFT8, dtype=torch.int32, device=bits.device)
+    b = (bits.to(torch.int32)[..., None] >> shift) & 1
+    sgn = b.reshape(r, nb, block).to(torch.float32) * 2.0 - 1.0
+    y = (sgn * scale[..., None]).reshape(r, nb * block)[:, :size]
+    return y.contiguous()

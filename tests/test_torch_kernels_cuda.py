@@ -17,6 +17,9 @@ from repro_torch.kernels import ref  # noqa: E402
 
 COLS = (1, 255, 256, 257, 2120, 2123)   # 2123: rows misaligned for float4
 BLOCKS = (64, 256, 100)
+# sign: 1000 is no power of two, 24/8 = 3 bytes is no multiple of 4
+SIGN_COLS = (1, 7, 1023, 1024, 1025, 2120, 2123)
+SIGN_BLOCKS = (24, 64, 1000, 1024)
 
 
 @pytest.fixture
@@ -51,7 +54,8 @@ def test_kernels_match_plain_versions(cuda, cols, block):
     assert torch.equal(y, ref.int8_dequant_ref(q, s, block))
     assert torch.equal(g, ref.int8_scale_quant_ref(x, group, block))
     assert kern.launch_counts == {"int8_quantize": 1, "int8_dequantize": 1,
-                                  "int8_scale_quantize": 1}
+                                  "int8_scale_quantize": 1, "sign_pack": 0,
+                                  "sign_unpack": 0}
 
 
 @pytest.mark.gpu
@@ -59,3 +63,46 @@ def test_kernels_refuse_mixed_devices(cuda):
     x = torch.zeros((2, 300), device=cuda)
     with pytest.raises(ValueError, match="different devices"):
         kern.int8_scale_quantize(x, torch.zeros((2, 2)))
+
+
+def _sign_payload(seed: int, rows: int, cols: int) -> torch.Tensor:
+    """Rows at magnitudes from 1e-3 to 10, the last one all zero, and a
+    -0.0 in every other row."""
+    x = _payload(seed, rows, cols)
+    x[:-1, ::5] = -0.0
+    return torch.from_numpy(x)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block", SIGN_BLOCKS)
+@pytest.mark.parametrize("cols", SIGN_COLS)
+def test_sign_kernels_match_plain_versions(cuda, cols, block):
+    x = _sign_payload(cols + block, 6, cols).to(cuda)
+    kern.reset_launch_counts()
+    bits, scale = kern.sign_pack(x, block=block)
+    y = kern.sign_unpack(bits, scale, size=cols, block=block)
+    torch.cuda.synchronize()
+    b_p, s_p = ref.sign_pack_ref(x, block)
+    assert torch.equal(bits, b_p) and torch.equal(scale, s_p)
+    assert torch.equal(y, ref.sign_unpack_ref(bits, scale, cols, block))
+    signs = np.unpackbits(bits.cpu().numpy(), axis=1, bitorder="little")
+    assert signs[:, cols:].all()          # the padded tail packs as +
+    assert signs[:-1, :cols:5].all()      # -0.0 packs as +
+    assert signs[-1].all() and not scale[-1].any()    # all-zero row
+    assert kern.launch_counts == {"int8_quantize": 0, "int8_dequantize": 0,
+                                  "int8_scale_quantize": 0, "sign_pack": 1,
+                                  "sign_unpack": 1}
+
+
+@pytest.mark.gpu
+def test_sign_kernels_at_a_large_shape(cuda):
+    """The kernel phase's large shape, ragged and misaligned for float4."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn((8, 2**24 + 77), generator=gen, device=cuda)
+    x[-1] = 0.0
+    bits, scale = kern.sign_pack(x, block=1024)
+    y = kern.sign_unpack(bits, scale, size=x.shape[1], block=1024)
+    torch.cuda.synchronize()
+    b_p, s_p = ref.sign_pack_ref(x, 1024)
+    assert torch.equal(bits, b_p) and torch.equal(scale, s_p)
+    assert torch.equal(y, ref.sign_unpack_ref(bits, scale, x.shape[1], 1024))
