@@ -34,10 +34,37 @@ or of the JAX package.  It
    run;
    the int8 runs must also reach accuracy >= 0.9 (the sign codec keeps
    this model at chance by design, so its runs have no accuracy floor);
-5. prints one ``{"kernels": [...]}`` JSON line, then the result line
+5. attention kernel phase: holds ``flash_attention`` against its plain
+   version (``attention_ref``) on the card at ATTN_CASES, to the
+   reference's tolerances (2e-5 in float32, 2e-2 in bfloat16), and times
+   kernel, plain version and ``scaled_dot_product_attention`` (the library
+   yardstick, which the port never calls) at the qwen2 prefill shape (a)
+   and the gemma3 local-layer shape (b), beside the bound;
+6. serving phase: qwen2-0.5b at full width (24 layers, d_model 896) with
+   ``use_kernels=True``, random weights from a seeded generator, through
+   ``DecodeEngine.generate``: 8 requests, prompts of 1024 random tokens,
+   32 greedy tokens, launches counted from zero (one ``flash_attention``
+   per layer per prefill: 24).  In float32 the tokens must equal those of
+   the same run with the plain versions on the card, and the prefill
+   logits must agree to PREFILL_RTOL * max|logit|; in bfloat16 (the
+   config's own) ``score_continuation`` of the generated tokens under both
+   routes must agree to SCORE_ATOL, and every log-probability must be
+   finite.  Then reduced gemma3-12b (a local layer with window 16 and a
+   global one), float32, prompt 40 > window: identical tokens under both
+   routes and one launch on each layer kind;
+7. prints one ``{"kernels": [...]}`` JSON line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Any failed phase exits non-zero before the result line.
+
+    python3 chip_smoke.py --profile
+
+builds the attention kernel and runs only the serving profile: qwen2-0.5b
+at full width in bf16 with the kernel, ``torch.profiler`` over one prefill
+(8 x 1024 tokens) and over DECODE_STEPS decode steps; it prints, per
+phase, the CUDA kernels launched, their summed device time, the host's
+wall time and the device's idle share, and the host ops that took most
+time, then one JSON line.
 """
 import contextlib
 import json
@@ -50,7 +77,7 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-SOURCES = ("int8_codec", "sign_codec")
+SOURCES = ("int8_codec", "sign_codec", "flash_attention")
 BLOCK = 256
 SHAPES = ((8, 2120), (8, 2**24 + 77))
 SIGN_BLOCK = 1024
@@ -59,6 +86,36 @@ SIGN_CASES = (((8, 2120), SIGN_BLOCK), ((8, 2**24 + 77), SIGN_BLOCK),
               ((8, 2120), 64), ((8, 2120), 1000), ((8, 2120), 24))
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory
 F32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12      # H100 SXM bf16 tensor cores, dense
+# flash attention cases: (B, Sq, Sk, Hq, Hk, D, dtype, causal, window);
+# (a) and (b), the first two, are timed
+ATTN_CASES = (
+    (8, 1024, 1024, 14, 2, 64, "bfloat16", True, None),    # (a) qwen2 prefill
+    (1, 2048, 2048, 16, 8, 256, "bfloat16", True, 1024),   # (b) gemma3 local
+    *((2, 300, 300, 4, 2, d, "float32", True, None)
+      for d in (32, 64, 96, 128, 192, 256)),
+    (1, 40, 40, 3, 1, 32, "float32", True, 4),             # ragged S
+    (2, 1000, 1000, 4, 2, 64, "float32", True, None),      # ragged S
+    (2, 100, 260, 4, 2, 64, "float32", False, None),       # Sq != Sk
+    (2, 100, 260, 4, 2, 128, "bfloat16", False, None),
+    (1, 200, 200, 4, 2, 128, "float32", True, 512),        # window > S
+    (2, 130, 130, 4, 4, 96, "float32", True, None),        # Hq == Hk
+    (2, 130, 130, 4, 4, 96, "bfloat16", True, 16),
+)
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py:32
+ATTN_TPU_KERNEL = "src/repro/kernels/flash_attention.py:76"
+# the serving phase: qwen2-0.5b at full width
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 1024, 32
+DECODE_STEPS = 8             # decode steps under the profiler (--profile)
+PREFILL_RTOL = 1e-3
+# bf16 scores, kernel vs plain versions on the card.  Both compute
+# attention in float32 and round its output to bf16; the kernel sums in
+# another order, so some outputs differ by one bf16 ulp, and those
+# differences compound through 24 bf16 layers and the tied 151,936-way
+# head.  Measured on an H100 (PERF.md, PR 13): 0.0939 nats at most over 8
+# requests, on scores of the 32 tokens near -300 (3e-4 relative).  The
+# limit is about three times that, 1e-3 of the score.
+SCORE_ATOL = 0.3
 # card vs CPU final loss.  The codecs are bitwise the same on both
 # devices, but PyTorch's CPU and CUDA float32 ops differ in the last bit
 # inside the local updates, and an ulp can flip one int8 rounding, which
@@ -111,11 +168,11 @@ def time_ms(torch, fn, inner: int, reps: int = 25, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def bound_ms(n_bytes: int, n_ops: int):
+def bound_ms(n_bytes: int, n_ops: int, ops_per_s: float = F32_OPS_PER_S):
     """Least time for the work: the larger of bytes over the memory rate
-    and float32 operations over the float32 rate."""
+    and operations over ``ops_per_s`` (default: the float32 rate)."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -300,27 +357,32 @@ def quickstart(device: str, comms, spec=None, opt=None):
 
 
 @contextlib.contextmanager
-def plain_versions(kern, ref):
-    """Route the kernel wrappers to their plain PyTorch versions on the
-    card, for a run to hold the kernels' run against."""
+def plain_versions(kern, ref, kattn=None):
+    """Route the kernel wrappers of ``kern`` (the codecs) and, if given,
+    ``kattn`` (attention) to their plain PyTorch versions on the card, for
+    a run to hold the kernels' run against."""
     plain = {
-        "int8_quantize": lambda x, block: ref.int8_ref(x, block)[:2],
-        "int8_dequantize": lambda q, s, block: ref.int8_dequant_ref(
+        (kern, "int8_quantize"): lambda x, block: ref.int8_ref(x, block)[:2],
+        (kern, "int8_dequantize"): lambda q, s, block: ref.int8_dequant_ref(
             q, s, block),
-        "int8_scale_quantize": lambda x, s, block:
+        (kern, "int8_scale_quantize"): lambda x, s, block:
             ref.int8_scale_quant_ref(x, s, block),
-        "sign_pack": lambda x, block: ref.sign_pack_ref(x, block),
-        "sign_unpack": lambda b, s, size, block: ref.sign_unpack_ref(
+        (kern, "sign_pack"): lambda x, block: ref.sign_pack_ref(x, block),
+        (kern, "sign_unpack"): lambda b, s, size, block: ref.sign_unpack_ref(
             b, s, size, block),
     }
-    saved = {name: getattr(kern, name) for name in plain}
-    for name, fn in plain.items():
-        setattr(kern, name, fn)
+    if kattn is not None:
+        plain[(kattn, "flash_attention")] = \
+            lambda q, k, v, causal=True, window=None: ref.attention_ref(
+                q, k, v, causal=causal, window=window)
+    saved = {key: getattr(*key) for key in plain}
+    for (mod, name), fn in plain.items():
+        setattr(mod, name, fn)
     try:
         yield
     finally:
-        for name, fn in saved.items():
-            setattr(kern, name, fn)
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
 
 
 # The main path's runs: (label, comms, spec, optimizer, the kernels the
@@ -395,6 +457,284 @@ def main_path_phase(torch, kern, ref):
     return launches
 
 
+def visible_pairs(sq: int, sk: int, causal: bool, window) -> int:
+    """The (query, key) pairs the mask lets through, counted row by row."""
+    import numpy as np
+    i = np.arange(sq)
+    hi = np.minimum(i, sk - 1) if causal else np.full(sq, sk - 1)
+    lo = np.zeros(sq, np.int64) if window is None \
+        else np.maximum(i - window + 1, 0)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def attention_kernel_phase(torch, kattn, ref):
+    """``flash_attention`` against ``attention_ref`` on the card at
+    ATTN_CASES; timings at (a) and (b).  Returns the kernel's record."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rec = {"max_abs_err": 0.0, "timed": []}
+    for i, (b, sq, sk, hq, hk, d, dtype, causal, window) in enumerate(
+            ATTN_CASES):
+        dt = getattr(torch, dtype)
+        q = torch.randn((b, sq, hq, d), generator=gen, device="cuda").to(dt)
+        k = torch.randn((b, sk, hk, d), generator=gen, device="cuda").to(dt)
+        v = torch.randn((b, sk, hk, d), generator=gen, device="cuda").to(dt)
+        out = kattn.flash_attention(q, k, v, causal=causal, window=window)
+        want = ref.attention_ref(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        tol = ATTN_TOL[dtype]
+        at = ATTN_CASES[i]
+        check(out.dtype == dt and out.shape == q.shape,
+              f"flash_attention: wrong output {out.dtype} {tuple(out.shape)} "
+              f"at {at}")
+        err = float((out.float() - want.float()).abs().max())
+        check(bool(torch.isfinite(out).all()) and bool(torch.allclose(
+            out.float(), want.float(), atol=tol, rtol=tol)),
+              f"flash_attention differs from its plain version at {at}: "
+              f"max |diff| {err}")
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        print(f"flash_attention {at}: max |kernel - plain| {err!r}",
+              flush=True)
+        if i < 2:
+            pairs = visible_pairs(sq, sk, causal, window)
+            flops = 4 * b * hq * d * pairs
+            nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+            b_ms, b_by = bound_ms(nbytes, flops, BF16_OPS_PER_S)
+            t = {"shape": list(at), "visible_pairs": pairs, "flops": flops,
+                 "bytes": nbytes, "bound_ms": b_ms, "bound_by": b_by,
+                 "f32_core_ms": flops / F32_OPS_PER_S * 1e3,
+                 "ms": time_ms(torch, lambda: kattn.flash_attention(
+                     q, k, v, causal=causal, window=window), 5),
+                 "plain_ms": time_ms(torch, lambda: ref.attention_ref(
+                     q, k, v, causal=causal, window=window), 2, reps=10),
+                 "library_ms": None}
+            if window is None and causal:
+                qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+                t["library_ms"] = time_ms(
+                    torch, lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=True, enable_gqa=True), 5)
+            rec["timed"].append(t)
+            print(f"flash_attention {at}: kernel {t['ms']:.5f} ms, plain "
+                  f"{t['plain_ms']:.5f} ms, library {t['library_ms']} ms, "
+                  f"bound {b_ms:.5f} ms ({b_by}), f32 CUDA-core ceiling "
+                  f"{t['f32_core_ms']:.5f} ms", flush=True)
+        del q, k, v, out, want
+        torch.cuda.empty_cache()
+    return rec
+
+
+@contextlib.contextmanager
+def recording_windows(kattn):
+    """Record the ``window`` of every call of the attention wrapper (the
+    calls go through to it, so it counts its launches as always)."""
+    real, seen = kattn.flash_attention, []
+
+    def spy(q, k, v, *, causal=True, window=None):
+        seen.append(window)
+        return real(q, k, v, causal=causal, window=window)
+
+    kattn.flash_attention = spy
+    try:
+        yield seen
+    finally:
+        kattn.flash_attention = real
+
+
+def serve(torch, kattn, cfg, batch, prompt_len, gen_len, seed=0):
+    """``cfg`` at random weights through ``DecodeEngine.generate`` on the
+    card, launches counted from zero; returns the model, params, engine,
+    prompt, result, the launches and the prefill/decode seconds."""
+    from repro_torch.models import build_model
+    from repro_torch.serving import DecodeEngine
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = model.init(gen, device="cuda")
+    prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                           generator=gen, device="cuda")
+    engine = DecodeEngine(model, params, device="cuda")
+    engine.generate(prompt[:, :64], 2)         # warm-up, not counted
+    prefill_s = []
+    real_prefill = model.prefill
+
+    def timed_prefill(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_prefill(*args, **kw)
+        torch.cuda.synchronize()
+        prefill_s.append(time.perf_counter() - t0)
+        return out
+
+    model.prefill = timed_prefill
+    torch.cuda.synchronize()
+    kattn.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = engine.generate(prompt, gen_len)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    launches = dict(kattn.launch_counts)
+    model.prefill = real_prefill
+    return {"model": model, "params": params, "engine": engine,
+            "prompt": prompt, "res": res, "launches": launches,
+            "prefill_s": prefill_s[0], "decode_s": total - prefill_s[0]}
+
+
+def serving_phase(torch, kern, kattn, ref):
+    """qwen2-0.5b at full width in float32 and bfloat16, then reduced
+    gemma3-12b; each held against the plain versions on the card.
+    Returns the launches of each run and the throughputs."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.configs import get_config, reduced
+    torch.cuda.reset_peak_memory_stats()
+    base = dataclasses.replace(get_config("qwen2-0.5b"), use_kernels=True)
+    layers = base.num_layers
+    out = {"launches": {}, "throughput": {}}
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(base, dtype=dtype, param_dtype=dtype)
+        label = f"qwen2-0.5b {dtype}"
+        run = serve(torch, kattn, cfg, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN)
+        res, eng, prompt = run["res"], run["engine"], run["prompt"]
+        n = run["launches"]["flash_attention"]
+        check(n == layers, f"{label}: flash_attention launched {n} times in "
+              f"one prefill of {layers} layers")
+        out["launches"][label] = n
+        tp = {"prefill_s": run["prefill_s"], "decode_s": run["decode_s"],
+              "prefill_tok_per_s": SERVE_BATCH * SERVE_PROMPT
+              / run["prefill_s"],
+              "decode_tok_per_s": SERVE_BATCH * (SERVE_GEN - 1)
+              / run["decode_s"],
+              "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        out["throughput"][label] = tp
+        print(f"serve {label}: batch {SERVE_BATCH}, prompt {SERVE_PROMPT}, "
+              f"{SERVE_GEN} tokens: prefill {tp['prefill_s']:.4f} s "
+              f"({tp['prefill_tok_per_s']:.1f} tok/s), decode "
+              f"{tp['decode_s']:.4f} s ({tp['decode_tok_per_s']:.1f} tok/s), "
+              f"launches {run['launches']}", flush=True)
+        check(np.isfinite(res.logprobs).all(),
+              f"{label}: a log-probability is not finite")
+        model, params = run["model"], run["params"]
+        logits_k, _ = model.prefill(params, prompt, SERVE_PROMPT + 1)
+        with plain_versions(kern, ref, kattn):
+            kattn.reset_launch_counts()
+            logits_p, _ = model.prefill(params, prompt, SERVE_PROMPT + 1)
+            plain = eng.generate(prompt, SERVE_GEN) if dtype == "float32" \
+                else None
+            check(kattn.launch_counts["flash_attention"] == 0,
+                  f"{label}: the plain-version run launched the kernel")
+        check(bool(torch.isfinite(logits_k).all()),
+              f"{label}: prefill logits are not finite")
+        scale = float(logits_p.float().abs().max())
+        diff = float((logits_k.float() - logits_p.float()).abs().max())
+        print(f"serve {label}: prefill logits max |kernel - plain| {diff!r} "
+              f"of max |logit| {scale!r}", flush=True)
+        if dtype == "float32":
+            check(diff <= PREFILL_RTOL * scale,
+                  f"{label}: prefill logits differ by {diff} > "
+                  f"{PREFILL_RTOL} * {scale}")
+            same = int((res.tokens == plain.tokens).sum())
+            check(same == res.tokens.size,
+                  f"{label}: {res.tokens.size - same} generated tokens "
+                  "differ from the plain versions'")
+        else:
+            tokens = torch.as_tensor(res.tokens, device="cuda")
+            score_k = eng.score_continuation(prompt, tokens)
+            with plain_versions(kern, ref, kattn):
+                score_p = eng.score_continuation(prompt, tokens)
+            d = float(np.abs(score_k - score_p).max())
+            print(f"serve {label}: score_continuation kernel {score_k!r} "
+                  f"plain {score_p!r} max |diff| {d!r}", flush=True)
+            check(np.isfinite(score_k).all() and np.isfinite(score_p).all(),
+                  f"{label}: a score is not finite")
+            check(d <= SCORE_ATOL,
+                  f"{label}: scores differ by {d} > {SCORE_ATOL}")
+        del run, res, eng, prompt, model, params, logits_k, logits_p
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    label = "gemma3-12b reduced float32"
+    cfg = reduced(get_config("gemma3-12b"), use_kernels=True)
+    with recording_windows(kattn) as seen:
+        run = serve(torch, kattn, cfg, 4, 40, 12)
+    windows = seen[-cfg.num_layers:]
+    n = run["launches"]["flash_attention"]
+    check(n == cfg.num_layers and windows == [cfg.sliding_window, None],
+          f"{label}: launches {n}, windows {windows}; want one launch on "
+          "the local layer and one on the global one")
+    with plain_versions(kern, ref, kattn):
+        plain = run["engine"].generate(run["prompt"], 12)
+    check((run["res"].tokens == plain.tokens).all(),
+          f"{label}: tokens differ from the plain versions'")
+    out["launches"][label] = n
+    print(f"serve {label}: launches {n} (windows {windows}), tokens equal "
+          "to the plain versions'", flush=True)
+    return out
+
+
+def profile_phase(torch, kattn):
+    """The serving profile (``--profile``); returns its numbers."""
+    import dataclasses
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_config("qwen2-0.5b"), use_kernels=True)
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = model.init(gen, device="cuda")
+    prompt = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+                           generator=gen, device="cuda")
+    max_len = SERVE_PROMPT + DECODE_STEPS + 4
+    logits, cache = model.prefill(params, prompt, max_len)     # warm-up
+    tok = logits.argmax(-1)
+    for _ in range(2):
+        logits, cache = model.decode_step(params, cache, tok)
+    state = {}
+
+    def prefill():
+        state["logits"], state["cache"] = model.prefill(params, prompt,
+                                                        max_len)
+
+    def decode():
+        tok = state["logits"].argmax(-1)
+        state["logits"], state["cache"] = model.decode_step(
+            params, state["cache"], tok)
+
+    out = {}
+    for label, fn, n in (("prefill", prefill, 1),
+                         ("decode step", decode, DECODE_STEPS)):
+        torch.cuda.synchronize()
+        kattn.reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / n
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_ms = sum(e.device_time_total for e in kernels) / 1e3 / n
+        top = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+        rec = {"kernels": len(kernels) / n, "device_busy_ms": busy_ms,
+               "wall_ms": wall_ms,
+               "idle_share": 1.0 - busy_ms / wall_ms if busy_ms else None,
+               "flash_attention_launches": kattn.launch_counts[
+                   "flash_attention"] / n,
+               "top_host_ops": [(e.key, e.count / n,
+                                 e.self_cpu_time_total / 1e3 / n)
+                                for e in top[:8]]}
+        out[label] = rec
+        print(f"profile {label} (per call, {n} calls): "
+              f"{rec['kernels']:.1f} CUDA kernels, device busy "
+              f"{busy_ms:.4f} ms of {wall_ms:.4f} ms wall, idle share "
+              f"{rec['idle_share']}, flash_attention launches "
+              f"{rec['flash_attention_launches']}", flush=True)
+        for key, count, ms in rec["top_host_ops"]:
+            print(f"    {key}: {count:.1f} calls, {ms:.4f} ms host",
+                  flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -407,12 +747,18 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
+    from repro_torch.kernels import attention as kattn
     from repro_torch.kernels import comms as kern
     from repro_torch.kernels import ref
 
     # TF32 rule: float32 products and convolutions in full float32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:] == ["--profile"]:
+        print(card_line(), flush=True)
+        _build.build("flash_attention")
+        print(json.dumps({"profile": profile_phase(torch, kattn)}))
+        return 0
     try:
         print(card_line(), flush=True)
         t0 = time.perf_counter()
@@ -429,7 +775,9 @@ def main() -> int:
                 print(f"{name} {shape}: kernel {t['ms']:.5f} ms, plain "
                       f"{t['plain_ms']:.5f} ms, bound {t['bound_ms']:.5f} ms",
                       flush=True)
+        attn = attention_kernel_phase(torch, kattn, ref)
         launches = main_path_phase(torch, kern, ref)
+        served = serving_phase(torch, kern, kattn, ref)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -454,6 +802,19 @@ def main() -> int:
             "block": SIGN_BLOCK if source == "sign_codec" else BLOCK,
             "main_path_shape": {"shape": list(SHAPES[0]), **small},
         })
+    a, b = attn["timed"]
+    kernels.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": SOURCE.format("flash_attention"),
+        "replaces": ATTN_TPU_KERNEL,
+        "launches": sum(served["launches"].values()),
+        "launches_by_run": served["launches"],
+        "max_abs_err": attn["max_abs_err"],
+        "ms": a["ms"], "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
+        "bound_by": a["bound_by"], "library_ms": a["library_ms"],
+        "f32_core_ms": a["f32_core_ms"], "shape": a["shape"],
+        "shape_b": b, "serving": served["throughput"],
+    })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,24 @@
+"""Qwen2-0.5B [arXiv:2407.10671].
+
+Dense: 24 layers, d_model 896, 14 heads GQA kv=2 (head_dim 64), d_ff 4864,
+vocab 151936, QKV bias, SwiGLU, tied embeddings.
+"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen2-0.5b",
+    family="dense",
+    source="arXiv:2407.10671",
+    num_layers=24,
+    d_model=896,
+    num_heads=14,
+    num_kv_heads=2,
+    head_dim=64,
+    d_ff=4864,
+    vocab_size=151936,
+    qkv_bias=True,
+    tie_embeddings=True,
+    mlp_variant="swiglu",
+    rope_theta=1_000_000.0,
+    block_pattern=("global",),
+)

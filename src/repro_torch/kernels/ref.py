@@ -2,10 +2,12 @@
 ``repro.kernels.ref``).
 
 They run on any device.  The kernel wrappers in
-:mod:`repro_torch.kernels.comms` use them for CPU tensors, the CPU tests
-hold them bitwise against the JAX package, and ``chip_smoke.py`` holds
-each CUDA kernel bitwise against them on the card.  Every operation here
-is chosen so that CPU, card and the jitted reference round identically:
+:mod:`repro_torch.kernels.comms` and :mod:`repro_torch.kernels.attention`
+use them for CPU tensors, the CPU tests hold them against the JAX
+package, and ``chip_smoke.py`` holds each CUDA kernel against them on the
+card: the codecs bitwise, attention to a tolerance (see
+:func:`attention_ref`).  Every operation of the codecs' versions is chosen
+so that CPU, card and the jitted reference round identically:
 
 * Rounding rule: ``torch.round`` rounds half to even, like ``jnp.round``.
 * Division rule: the int8 scale is ``amax * f32(1/127)`` (XLA's folded
@@ -30,7 +32,8 @@ is chosen so that CPU, card and the jitted reference round identically:
 """
 from __future__ import annotations
 
-from typing import Tuple
+import math
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -134,3 +137,35 @@ def sign_unpack_ref(bits: torch.Tensor, scale: torch.Tensor, size: int,
     sgn = b.reshape(r, nb, block).to(torch.float32) * 2.0 - 1.0
     y = (sgn * scale[..., None]).reshape(r, nb * block)[:, :size]
     return y.contiguous()
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True,
+                  window: Optional[int] = None) -> torch.Tensor:
+    """Softmax attention, the plain version of the flash attention kernel.
+
+    q (B, Sq, Hq, D); k, v (B, Sk, Hk, D) with Hq % Hk == 0: query head h
+    reads key/value head h // (Hq/Hk) (``repeat_interleave``, which is
+    ``jnp.repeat``'s order).  Key j is visible to query i iff j <= i when
+    ``causal`` and i - j < ``window`` when windowed, positions counting from
+    0 on both sides; other logits are -1e30.  All arithmetic is float32
+    (logits scaled by f32(1/sqrt(D)), softmax, the product with v); the
+    result comes back in q's dtype.  The kernel sums in another order, so
+    the two agree to a tolerance, not bitwise."""
+    n_rep = q.shape[2] // k.shape[2]
+    qf = q.to(torch.float32)
+    kf = k.to(torch.float32).repeat_interleave(n_rep, dim=2)
+    vf = v.to(torch.float32).repeat_interleave(n_rep, dim=2)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    sq, sk = q.shape[1], k.shape[1]
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= (qpos - kpos) < window
+    logits = torch.where(mask, logits, -1e30)
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, vf).to(q.dtype)

@@ -1,0 +1,72 @@
+"""Batched serving launcher: init a model, prefill a batch of prompts,
+decode N tokens, report tokens/s (PyTorch counterpart of
+``repro.launch.serve``, with the same flags and defaults).
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
+      --reduced --batch 4 --prompt-len 32 --gen 16
+
+It runs on the CUDA card.  Attention goes through the flash attention
+kernel only where the config sets ``use_kernels`` (a config field that the
+caller sets, as ``use_pallas`` is in the reference); this launcher keeps
+the registry's default, the plain path.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch.configs import get_config, reduced
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import build_model
+from repro_torch.serving import DecodeEngine
+
+
+def main(argv=None, device: DeviceLike = "cuda"):
+    """Parse ``argv`` and serve on ``device`` (``"cpu"`` for tests)."""
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="mamba2-130m",
+                    help="architecture id; the SSD (mamba2-130m, the "
+                         "default), RG-LRU, MoE and encoder-decoder "
+                         "families raise NotImplementedError until their "
+                         "slice of the port lands (ROADMAP A9)")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--ckpt-dir", default="",
+                    help="not ported yet (ROADMAP A10): the reference's "
+                         "checkpoints need msgpack")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    if args.ckpt_dir:
+        raise NotImplementedError(
+            "--ckpt-dir: checkpoint restore is not ported yet (ROADMAP A10); "
+            "the reference's format needs msgpack")
+    dev = resolve_device(device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = reduced(cfg)
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    params = model.init(gen, device=dev)
+
+    eng = DecodeEngine(model, params, temperature=args.temperature,
+                       device=dev)
+    prompt = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
+                           generator=gen, device=dev)
+    t0 = time.perf_counter()
+    res = eng.generate(prompt, args.gen, generator=gen)
+    dt = time.perf_counter() - t0
+    print(f"arch={cfg.name} batch={args.batch} prompt={args.prompt_len} "
+          f"gen={args.gen}: {args.batch * args.gen / dt:.1f} tok/s "
+          f"({dt:.2f}s total)")
+    print("sample:", res.tokens[0][:16].tolist())
+    return res
+
+
+if __name__ == "__main__":
+    main()

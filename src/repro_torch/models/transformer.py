@@ -1,0 +1,349 @@
+"""Decoder-only LM for the dense and local-attention families (PyTorch
+counterpart of ``repro.models.transformer``).
+
+Layers are grouped into *pattern units* (``cfg.block_pattern``) that repeat
+``cfg.num_pattern_units`` times.  The params tree is the reference's, leaf
+for leaf: ``embed``, ``final_norm``, optional ``lm_head``, ``units`` (a
+tuple with one dict per pattern kind, every tensor stacked on a leading
+unit axis) and ``rem`` (the depth remainder's blocks).  Where the
+reference runs ``lax.scan`` over units, a Python loop here indexes the
+stacked tensors, so JAX params carry over through
+:func:`params_from_numpy` unchanged.
+
+Three entry points per model:
+  * ``loss``        — training forward + mean token CE
+  * ``prefill``     — full-sequence forward that also fills decode caches
+  * ``decode_step`` — one-token step against the caches
+
+Caches differ from the reference in two ways: ``decode_step`` writes the
+new token's k/v into the cache tensors in place (the reference builds new
+arrays with ``dynamic_update_slice``), so a cache passed to it must not be
+used again; and the position ``cache["pos"]`` is a Python int, so indexing
+the cache never waits for the card.
+
+Kinds ``ssd`` and ``rglru`` and MoE blocks are not in this slice: their
+``block_init`` raises ``NotImplementedError`` naming ROADMAP A9.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import layers as L
+
+Params = Dict[str, Any]
+
+_ATTN_KINDS = ("global", "local")
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def _stack(trees):
+    """Dicts of equal structure -> one dict of tensors stacked on axis 0."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    return torch.stack(trees)
+
+
+def _unit(tree, u: int):
+    """The u-th unit's view of a unit-stacked tree (no copy)."""
+    return _tree_map(lambda t: t[u], tree)
+
+
+# --------------------------------------------------------------------------
+# block init / apply
+# --------------------------------------------------------------------------
+def block_init(gen: torch.Generator, kind: str, cfg: ModelConfig) -> Params:
+    if kind in ("ssd", "rglru") or cfg.num_experts:
+        what = f"{kind!r} blocks" if kind in ("ssd", "rglru") else "MoE blocks"
+        raise NotImplementedError(
+            f"{what} are not ported yet (ROADMAP A9); this slice carries the "
+            "dense 'global'/'local' attention blocks")
+    if kind not in _ATTN_KINDS:
+        raise ValueError(kind)
+    p: Params = {"ln1": L.norm_init(cfg.d_model, cfg, gen.device),
+                 "attn": L.attention_init(gen, cfg)}
+    if cfg.mlp_variant != "none" and cfg.d_ff > 0:
+        p["ln2"] = L.norm_init(cfg.d_model, cfg, gen.device)
+        p["mlp"] = L.mlp_init(gen, cfg)
+    return p
+
+
+def _mixer_window(kind: str, cfg: ModelConfig) -> Optional[int]:
+    return cfg.sliding_window if kind == "local" else None
+
+
+def _mlp_residual(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    if "ln2" in p:
+        x = x + L.mlp_apply(p["mlp"], L.apply_norm(p["ln2"], x, cfg), cfg)
+    return x
+
+
+def block_apply(p: Params, x: torch.Tensor, kind: str, cfg: ModelConfig, *,
+                positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence block. Returns (x, moe_aux); moe_aux is 0 (no MoE)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    h = L.apply_norm(p["ln1"], x, cfg)
+    h = L.attention_apply(p["attn"], h, cfg, positions=positions,
+                          window=_mixer_window(kind, cfg))
+    return _mlp_residual(p, x + h, cfg), aux
+
+
+# ---- prefill: same forward but emits decode caches -------------------------
+def block_prefill(p: Params, x: torch.Tensor, kind: str, cfg: ModelConfig, *,
+                  positions: torch.Tensor,
+                  max_len: int) -> Tuple[torch.Tensor, Params]:
+    """Returns (x_out, cache) where cache layout matches block_decode."""
+    b, s, _ = x.shape
+    h = L.apply_norm(p["ln1"], x, cfg)
+    k, v = L.attention_kv(p["attn"], h, cfg, positions=positions)
+    if kind == "global":
+        kc = k.new_zeros((b, max_len) + k.shape[2:])
+        vc = v.new_zeros((b, max_len) + v.shape[2:])
+        kc[:, :s] = k
+        vc[:, :s] = v
+        cache: Params = {"k": kc, "v": vc}
+    else:
+        w = cfg.sliding_window
+        # slot j holds the last prompt position p with p % w == j
+        idx = np.array([s - 1 - ((s - 1 - j) % w) for j in range(w)])
+        valid = idx >= 0
+        idx_c = torch.as_tensor(np.where(valid, idx, 0), device=x.device)
+        keep = torch.as_tensor(valid, device=x.device)[None, :, None, None]
+        kc = torch.where(keep, k[:, idx_c], torch.zeros((), dtype=k.dtype,
+                                                        device=x.device))
+        vc = torch.where(keep, v[:, idx_c], torch.zeros((), dtype=v.dtype,
+                                                        device=x.device))
+        slot_pos = torch.as_tensor(np.where(valid, idx, -1), dtype=torch.int32,
+                                   device=x.device)
+        cache = {"k": kc, "v": vc, "slot_pos": slot_pos}
+    h = L.attention_apply(p["attn"], h, cfg, positions=positions,
+                          window=_mixer_window(kind, cfg))
+    return _mlp_residual(p, x + h, cfg), cache
+
+
+def block_decode(p: Params, x: torch.Tensor, kind: str, cfg: ModelConfig, *,
+                 cache: Params, pos: int) -> Tuple[torch.Tensor, Params]:
+    """One-token step. x: (B,1,D); pos: int (position being written).  The
+    new k/v (and, for a local layer, its slot position) are written into
+    ``cache``'s tensors in place; the same dict comes back."""
+    b = x.shape[0]
+    h = L.apply_norm(p["ln1"], x, cfg)
+    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    k, v = L.attention_kv(p["attn"], h, cfg, positions=positions)
+    if kind == "global":
+        cache["k"][:, pos] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][:, pos] = v[:, 0].to(cache["v"].dtype)
+        cpos = torch.arange(cache["k"].shape[1], dtype=torch.int32,
+                            device=x.device)
+        cache_positions = torch.where(cpos <= pos, cpos, -1)
+    else:
+        slot = pos % cfg.sliding_window
+        cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+        cache["slot_pos"][slot] = pos
+        cache_positions = cache["slot_pos"]
+    h = L.attention_decode(
+        p["attn"], h, cfg, k_cache=cache["k"], v_cache=cache["v"],
+        cache_positions=cache_positions.expand((b,) + cache_positions.shape),
+        position=positions[:, 0])
+    return _mlp_residual(p, x + h, cfg), cache
+
+
+def block_cache_init(kind: str, cfg: ModelConfig, batch: int, max_len: int,
+                     dtype: torch.dtype, device=None) -> Params:
+    if kind == "global":
+        shape = (batch, max_len, cfg.num_kv_heads, cfg.d_head)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if kind == "local":
+        w = cfg.sliding_window
+        shape = (batch, w, cfg.num_kv_heads, cfg.d_head)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device),
+                "slot_pos": torch.full((w,), -1, dtype=torch.int32,
+                                       device=device)}
+    if kind in ("ssd", "rglru"):
+        raise NotImplementedError(f"{kind!r} caches are not ported yet "
+                                  "(ROADMAP A9)")
+    raise ValueError(kind)
+
+
+# --------------------------------------------------------------------------
+# the decoder-only LM
+# --------------------------------------------------------------------------
+class DecoderLM:
+    """Decoder-only LM. Stateless: params/caches are explicit."""
+
+    def __init__(self, cfg: ModelConfig):
+        self.cfg = cfg
+
+    # ---- init ----------------------------------------------------------
+    def init(self, generator: torch.Generator,
+             device: DeviceLike = "cuda") -> Params:
+        """Random params drawn from ``generator`` (on the generator's
+        device, so a CUDA generator draws on the card), placed on
+        ``device``.  JAX's PRNG is not reproduced: to hold the port to the
+        reference, carry the reference's params over with
+        :func:`params_from_numpy`."""
+        dev = resolve_device(device)
+        cfg = self.cfg
+        gen = generator
+        params: Params = {
+            "embed": L.normal(gen, (cfg.vocab_size, cfg.d_model), 0.02).to(
+                L.torch_dtype(cfg.param_dtype)),
+            "final_norm": L.norm_init(cfg.d_model, cfg, gen.device)}
+        if not cfg.tie_embeddings:
+            params["lm_head"] = L.dense_init(gen, cfg.d_model, cfg.vocab_size,
+                                             cfg.param_dtype)
+        n_units = cfg.num_pattern_units
+        units = [[block_init(gen, kind, cfg) for kind in cfg.block_pattern]
+                 for _ in range(n_units)]
+        params["units"] = tuple(
+            _stack([units[u][j] for u in range(n_units)])
+            for j in range(len(cfg.block_pattern))) if n_units else ()
+        params["rem"] = tuple(block_init(gen, kind, cfg)
+                              for kind in cfg.pattern_remainder)
+        return _tree_map(lambda t: t.to(dev), params)
+
+    # ---- helpers ---------------------------------------------------------
+    def _embed(self, params, tokens):
+        return params["embed"][tokens].to(L.torch_dtype(self.cfg.dtype))
+
+    def _logits(self, params, x):
+        x = L.apply_norm(params["final_norm"], x, self.cfg)
+        head = params["embed"].T if self.cfg.tie_embeddings else params["lm_head"]
+        return x @ head.to(x.dtype)
+
+    def _positions(self, b: int, s: int, device) -> torch.Tensor:
+        return torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
+
+    def _blocks(self, params):
+        """(block params, kind, unit index or None, pattern index) in depth
+        order: the units' blocks, then the remainder's."""
+        cfg = self.cfg
+        for u in range(cfg.num_pattern_units):
+            for j, kind in enumerate(cfg.block_pattern):
+                yield _unit(params["units"][j], u), kind, u, j
+        for j, kind in enumerate(cfg.pattern_remainder):
+            yield params["rem"][j], kind, None, j
+
+    # ---- training --------------------------------------------------------
+    def forward(self, params: Params,
+                tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """tokens (B,S) -> (logits (B,S,V), moe_aux scalar)."""
+        b, s = tokens.shape
+        x = self._embed(params, tokens)
+        positions = self._positions(b, s, x.device)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for p, kind, _, _ in self._blocks(params):
+            x, a = block_apply(p, x, kind, self.cfg, positions=positions)
+            aux = aux + a
+        return self._logits(params, x), aux
+
+    def loss(self, params: Params,
+             batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict]:
+        logits, aux = self.forward(params, batch["tokens"])
+        logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+        tgt = batch["targets"].long()
+        nll = -logp.gather(-1, tgt[..., None])[..., 0]
+        mask = batch.get("mask")
+        if mask is None:
+            mask = torch.ones_like(nll)
+        ce = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+        return ce + aux, {"ce": ce, "moe_aux": aux}
+
+    # ---- serving ---------------------------------------------------------
+    def init_cache(self, batch: int, max_len: int, dtype=None,
+                   device: DeviceLike = "cuda") -> Params:
+        cfg = self.cfg
+        dtype = dtype or L.torch_dtype(cfg.dtype)
+        dev = resolve_device(device)
+        n_units = cfg.num_pattern_units
+
+        def one(kind):
+            return block_cache_init(kind, cfg, batch, max_len, dtype, dev)
+
+        units = tuple(_stack([one(kind) for _ in range(n_units)])
+                      for kind in cfg.block_pattern) if n_units else ()
+        rem = tuple(one(kind) for kind in cfg.pattern_remainder)
+        return {"units": units, "rem": rem, "pos": 0}
+
+    def prefill(self, params: Params, tokens: torch.Tensor,
+                max_len: int) -> Tuple[torch.Tensor, Params]:
+        """Full-sequence forward that fills caches. Returns (last logits, cache)."""
+        cfg = self.cfg
+        b, s = tokens.shape
+        x = self._embed(params, tokens)
+        positions = self._positions(b, s, x.device)
+        unit_caches = [[] for _ in cfg.block_pattern]
+        rem_caches = []
+        for p, kind, u, j in self._blocks(params):
+            x, c = block_prefill(p, x, kind, cfg, positions=positions,
+                                 max_len=max_len)
+            (unit_caches[j] if u is not None else rem_caches).append(c)
+        units = tuple(_stack(c) for c in unit_caches) \
+            if cfg.num_pattern_units else ()
+        logits = self._logits(params, x[:, -1:, :])
+        return logits[:, 0], {"units": units, "rem": tuple(rem_caches),
+                              "pos": s}
+
+    def decode_step(self, params: Params, cache: Params,
+                    token: torch.Tensor) -> Tuple[torch.Tensor, Params]:
+        """token (B,) -> (logits (B,V), cache).  The cache's tensors are
+        updated in place and come back in a dict with ``pos`` advanced."""
+        x = self._embed(params, token[:, None])
+        pos = int(cache["pos"])
+        for p, kind, u, j in self._blocks(params):
+            c = _unit(cache["units"][j], u) if u is not None \
+                else cache["rem"][j]
+            x, _ = block_decode(p, x, kind, self.cfg, cache=c, pos=pos)
+        logits = self._logits(params, x)[:, 0]
+        return logits, {"units": cache["units"], "rem": cache["rem"],
+                        "pos": pos + 1}
+
+
+# --------------------------------------------------------------------------
+# the weight carrier
+# --------------------------------------------------------------------------
+def params_from_numpy(tree, device: DeviceLike = "cuda"):
+    """An LM's params from the JAX package (the same tree of dicts and
+    tuples, with numpy leaves, e.g. from ``jax.device_get``) as the port's
+    tensors on ``device``.  bfloat16 leaves (numpy dtype named
+    "bfloat16") come over bit for bit through a uint16 view, as the
+    reference's checkpoint does it; uint16 leaves are read as such bits."""
+    dev = resolve_device(device)
+
+    def leaf(a):
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16" or a.dtype == np.uint16:
+            bits = np.ascontiguousarray(a).view(np.uint16).view(np.int16)
+            return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(dev)
+        return torch.from_numpy(np.array(a)).to(dev)
+
+    return _tree_map(leaf, tree)
+
+
+def params_to_numpy(tree):
+    """The inverse of :func:`params_from_numpy`: the same tree with numpy
+    leaves on the host.  numpy has no bfloat16 of its own, so bfloat16
+    leaves come back as their uint16 bit patterns (which
+    :func:`params_from_numpy` reads back as bfloat16)."""
+    def leaf(t):
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.uint16)
+        return t.numpy()
+
+    return _tree_map(leaf, tree)

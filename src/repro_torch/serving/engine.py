@@ -1,0 +1,103 @@
+"""Batched serving engine: prefill once, decode step-by-step (PyTorch
+counterpart of ``repro.serving.engine``).
+
+Caches come from the model (full KV and sliding-window ring, see
+:func:`repro_torch.models.transformer.block_cache_init`).  All requests in
+a batch decode in lockstep.  Tokens and log-probabilities stay on the
+model's device until the end of a call, so a step does not wait for the
+card.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device
+
+
+@dataclasses.dataclass
+class GenerationResult:
+    tokens: np.ndarray          # (B, gen_len)
+    logprobs: np.ndarray        # (B, gen_len)
+    steps: int
+
+
+class DecodeEngine:
+    """Serves ``model`` with ``params`` on ``device`` (``cuda`` unless the
+    caller passes ``device="cpu"``); the params must already live there."""
+
+    def __init__(self, model, params, *, temperature: float = 0.0,
+                 device: DeviceLike = "cuda"):
+        self.device = resolve_device(device)
+        where = params["embed"].device
+        if where.type != self.device.type or (
+                self.device.index is not None
+                and where.index != self.device.index):
+            raise ValueError(f"DecodeEngine: params are on {where}, the "
+                             f"engine on {self.device}")
+        self.model = model
+        self.params = params
+        self.temperature = temperature
+
+    def _tokens(self, tokens) -> torch.Tensor:
+        if not isinstance(tokens, torch.Tensor):
+            tokens = torch.from_numpy(np.asarray(tokens))
+        return tokens.to(self.params["embed"].device, torch.long)
+
+    def _sample(self, gen: torch.Generator, logits: torch.Tensor):
+        """Greedy ``argmax``, or a draw from softmax(logits / temperature)
+        by the Gumbel-max rule with uniforms from ``gen``."""
+        if self.temperature <= 0.0:
+            return torch.argmax(logits, dim=-1)
+        u = torch.rand(logits.shape, generator=gen, device=gen.device)
+        gumbel = -torch.log(-torch.log(u.to(logits.device)))
+        return torch.argmax(logits.to(torch.float32) / self.temperature
+                            + gumbel, dim=-1)
+
+    @staticmethod
+    def _logp_of(logits: torch.Tensor, tok: torch.Tensor) -> torch.Tensor:
+        logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+        return logp.gather(-1, tok[:, None])[:, 0]
+
+    def generate(self, prompt, gen_len: int, *,
+                 generator: Optional[torch.Generator] = None
+                 ) -> GenerationResult:
+        """prompt: (B, S) token ids. Greedy (or temperature) continuation;
+        ``generator`` (default: seed 0 on the model's device) drives the
+        sampling when the temperature is above 0."""
+        prompt = self._tokens(prompt)
+        if generator is None:
+            generator = torch.Generator(
+                device=prompt.device).manual_seed(0)
+        b, s = prompt.shape
+        logits, cache = self.model.prefill(self.params, prompt,
+                                           max_len=s + gen_len)
+        toks, lps = [], []
+        tok = self._sample(generator, logits)
+        for t in range(gen_len):
+            lps.append(self._logp_of(logits, tok))
+            toks.append(tok)
+            if t + 1 < gen_len:
+                logits, cache = self.model.decode_step(self.params, cache, tok)
+                tok = self._sample(generator, logits)
+        return GenerationResult(torch.stack(toks, 1).cpu().numpy(),
+                                torch.stack(lps, 1).cpu().numpy(), gen_len)
+
+    def score_continuation(self, prompt, continuation) -> np.ndarray:
+        """Sum logprob of a given continuation (evaluation utility)."""
+        prompt = self._tokens(prompt)
+        continuation = self._tokens(continuation)
+        b, s = prompt.shape
+        g = continuation.shape[1]
+        logits, cache = self.model.prefill(self.params, prompt,
+                                           max_len=s + g)
+        lps = []
+        for t in range(g):
+            tok = continuation[:, t]
+            lps.append(self._logp_of(logits, tok))
+            if t + 1 < g:
+                logits, cache = self.model.decode_step(self.params, cache, tok)
+        return torch.stack(lps, 1).cpu().numpy().astype(np.float64).sum(1)

@@ -35,7 +35,7 @@ def _imported_modules(path: Path):
 
 def test_port_files_import_no_jax_and_no_reference():
     files = _port_files()
-    assert len(files) >= 16
+    assert len(files) >= 45
     bad = [(str(p.relative_to(ROOT)), m) for p in files
            for m in _imported_modules(p)
            if m.split(".")[0] in FORBIDDEN]
@@ -53,6 +53,9 @@ def test_importing_the_port_loads_no_jax():
             "import repro_torch.core, repro_torch.comms, repro_torch.data\n"
             "import repro_torch.models, repro_torch.optim\n"
             "import repro_torch.kernels.comms, repro_torch.kernels._build\n"
+            "import repro_torch.kernels.attention, repro_torch.configs\n"
+            "import repro_torch.models.transformer, repro_torch.serving\n"
+            "import repro_torch.launch.serve\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")
@@ -90,6 +93,29 @@ def test_entry_points_refuse_missing_cuda(no_cuda):
         lambda: engine.init(gen, model.init),
         lambda: engine.init_from_params(params),
         lambda: engine.init_from_params(params, device="cuda"),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
+
+
+def test_lm_entry_points_refuse_missing_cuda(no_cuda):
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.serve import main
+    from repro_torch.models import build_model, params_from_numpy
+    from repro_torch.models import params_to_numpy
+    from repro_torch.serving import DecodeEngine
+
+    model = build_model(reduced(get_config("qwen2-0.5b")))
+    gen = torch.Generator().manual_seed(0)
+    params = model.init(gen, device="cpu")
+    calls = [
+        lambda: model.init(gen),
+        lambda: model.init(gen, device="cuda"),
+        lambda: params_from_numpy(params_to_numpy(params)),
+        lambda: DecodeEngine(model, params),
+        lambda: model.init_cache(2, 8),
+        lambda: main(["--arch", "qwen2-0.5b", "--reduced"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="cuda"):

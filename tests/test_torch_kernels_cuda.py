@@ -106,3 +106,54 @@ def test_sign_kernels_at_a_large_shape(cuda):
     b_p, s_p = ref.sign_pack_ref(x, 1024)
     assert torch.equal(bits, b_p) and torch.equal(scale, s_p)
     assert torch.equal(y, ref.sign_unpack_ref(bits, scale, x.shape[1], 1024))
+
+
+# flash attention: (B, Sq, Sk, Hq, Hk, D, dtype, causal, window), the
+# kernel phase's cases of chip_smoke.py
+ATTN_CASES = [
+    (8, 1024, 1024, 14, 2, 64, "bfloat16", True, None),    # qwen2 prefill
+    (1, 2048, 2048, 16, 8, 256, "bfloat16", True, 1024),   # gemma3 local
+    *[(2, 300, 300, 4, 2, d, "float32", True, None)
+      for d in (32, 64, 96, 128, 192, 256)],
+    (1, 40, 40, 3, 1, 32, "float32", True, 4),             # ragged S
+    (2, 1000, 1000, 4, 2, 64, "float32", True, None),      # ragged S
+    (2, 100, 260, 4, 2, 64, "float32", False, None),       # Sq != Sk
+    (2, 100, 260, 4, 2, 128, "bfloat16", False, None),
+    (1, 200, 200, 4, 2, 128, "float32", True, 512),        # window > S
+    (2, 130, 130, 4, 4, 96, "float32", True, None),        # Hq == Hk
+    (2, 130, 130, 4, 4, 96, "bfloat16", True, 16),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ATTN_CASES, ids=str)
+def test_flash_attention_matches_plain_version(cuda, case):
+    from repro_torch.kernels import attention as kattn
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    b, sq, sk, hq, hk, d, dtype, causal, window = case
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(sq + d)
+    q = torch.randn((b, sq, hq, d), generator=gen, device=cuda).to(dt)
+    k = torch.randn((b, sk, hk, d), generator=gen, device=cuda).to(dt)
+    v = torch.randn((b, sk, hk, d), generator=gen, device=cuda).to(dt)
+    kattn.reset_launch_counts()
+    out = kattn.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert kattn.launch_counts == {"flash_attention": 1}
+    want = ref.attention_ref(q, k, v, causal=causal, window=window)
+    tol = 2e-5 if dt == torch.float32 else 2e-2
+    assert out.dtype == dt and out.shape == q.shape
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+def test_flash_attention_refuses_what_it_does_not_take(cuda):
+    from repro_torch.kernels import attention as kattn
+    q = torch.zeros((1, 8, 2, 64), device=cuda)
+    with pytest.raises(ValueError, match="different devices"):
+        kattn.flash_attention(q, q.cpu(), q.cpu())
+    with pytest.raises(ValueError, match="16-byte"):
+        flat = torch.zeros(1 + q.numel(), device=cuda)
+        qm = flat[1:].view(q.shape)
+        kattn.flash_attention(qm, q, q)
