@@ -52,7 +52,34 @@ or of the JAX package.  It
    finite.  Then reduced gemma3-12b (a local layer with window 16 and a
    global one), float32, prompt 40 > window: identical tokens under both
    routes and one launch on each layer kind;
-7. prints one ``{"kernels": [...]}`` JSON line, then the result line
+7. SSM kernel phase: holds ``ssd_scan`` (float32 and bfloat16) and
+   ``rglru_scan`` against their plain versions (``ssd_ref``,
+   ``rglru_ref``) on the card at the reference's sweep shapes, the largest
+   SSD state the kernel takes, a strided SSD input (column slices of one
+   projection, which must give the contiguous inputs' result bit for bit)
+   and the full-width shapes of mamba2-130m's and recurrentgemma-2b's
+   forward (8 x 1024), to the reference's limits (SSD: max |diff| / max
+   |plain| < 1e-4 in float32, 3e-2 in bfloat16; RG-LRU: atol 5e-5, rtol
+   1e-4), and times kernel and plain version at the full-width shapes;
+8. SSM forward phase: ``DecoderLM.loss`` of mamba2-130m and
+   recurrentgemma-2b at full width with ``use_kernels=True``, random
+   weights from a seeded generator, 8 sequences of 1024 random tokens
+   (targets shifted by one), under ``torch.inference_mode()``, in float32
+   and bfloat16, launches counted from zero: exactly 24 ``ssd_scan``
+   (mamba2-130m), and 18 ``rglru_scan`` plus 8 ``flash_attention``
+   (recurrentgemma-2b).  Held against the same call with the plain
+   versions on the card: float32 logits within PREFILL_RTOL of the largest
+   and CE within CE_RTOL relative, bfloat16 CE within CE_ATOL_BF16;
+   prints tokens/s and peak memory;
+9. SSM serving phase: both models at full width through
+   ``DecodeEngine.generate`` with ``use_kernels=True``, 8 prompts of 1024
+   tokens and 32 greedy tokens, in float32 and bfloat16.  The prefill
+   launches ``flash_attention`` once per local layer (8 for
+   recurrentgemma-2b) and no SSM kernel, as the reference's prefill runs
+   no SSM kernel.  Float32 tokens must equal the plain versions' run's,
+   bfloat16 scores agree to SCORE_ATOL; prints prefill and decode tokens/s;
+10. prints one ``{"ssm": ...}`` JSON line with the SSM throughputs, one
+   ``{"kernels": [...]}`` JSON line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Any failed phase exits non-zero before the result line.
@@ -77,7 +104,8 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-SOURCES = ("int8_codec", "sign_codec", "flash_attention")
+SOURCES = ("int8_codec", "sign_codec", "flash_attention", "ssd_scan",
+           "rglru_scan")
 BLOCK = 256
 SHAPES = ((8, 2120), (8, 2**24 + 77))
 SIGN_BLOCK = 1024
@@ -127,6 +155,32 @@ SCORE_ATOL = 0.3
 # against the plain versions on the card.
 LOSS_RTOL = 1e-3
 MIN_ACC = 0.9
+# SSD scan cases (Bt, S, H, P, N, chunk): the reference's sweep
+# (tests/test_kernels.py:41-46, with a padded S and a single chunk), the
+# largest state the kernel takes, and mamba2-130m's full-width forward
+# (8 x 1024), which is timed; each in float32 and bfloat16
+SSD_CASES = ((2, 32, 4, 8, 16, 8), (1, 40, 2, 16, 8, 16), (2, 64, 3, 8, 4, 64),
+             (1, 16, 1, 4, 4, 4), (2, 100, 3, 64, 256, 64),
+             (8, 1024, 24, 64, 128, 64))
+# max |kernel - plain| / max |plain| (tests/test_kernels.py:56-57)
+SSD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+# RG-LRU scan cases (Bt, S, W): the reference's sweep (tests/test_kernels.py
+# :61-66) and recurrentgemma-2b's full-width forward, which is timed
+RGLRU_CASES = ((2, 32, 8), (1, 50, 16), (2, 64, 4), (1, 8, 2),
+               (8, 1024, 2560))
+RGLRU_ATOL, RGLRU_RTOL = 5e-5, 1e-4     # tests/test_kernels.py:72-73
+SSD_TPU_KERNEL = "src/repro/kernels/ssd_scan.py:58"
+RGLRU_TPU_KERNEL = "src/repro/kernels/rglru_scan.py:47"
+# the SSM forward and serving phases, at full width
+SSM_ARCHS = ("mamba2-130m", "recurrentgemma-2b")
+SSM_BATCH, SSM_SEQ, SSM_GEN = 8, 1024, 32
+# loss, kernels vs plain versions on the card.  In float32 the two routes
+# differ by float32 rounding only: CE within 1e-4 relative, logits within
+# PREFILL_RTOL of the largest.  In bfloat16 the kernels keep float32 inside
+# and round once, where the plain route rounds attention's probabilities
+# to bf16; the CE is held to 2e-2 nats.
+CE_RTOL = 1e-4
+CE_ATOL_BF16 = 2e-2
 TPU_KERNEL = "src/repro/kernels/comms.py"
 SOURCE = "src/repro_torch/kernels/csrc/{}.cu"
 
@@ -357,10 +411,11 @@ def quickstart(device: str, comms, spec=None, opt=None):
 
 
 @contextlib.contextmanager
-def plain_versions(kern, ref, kattn=None):
+def plain_versions(kern, ref, kattn=None, kssd=None, krg=None):
     """Route the kernel wrappers of ``kern`` (the codecs) and, if given,
-    ``kattn`` (attention) to their plain PyTorch versions on the card, for
-    a run to hold the kernels' run against."""
+    ``kattn`` (attention), ``kssd`` and ``krg`` (the SSD and RG-LRU scans)
+    to their plain PyTorch versions on the card, for a run to hold the
+    kernels' run against."""
     plain = {
         (kern, "int8_quantize"): lambda x, block: ref.int8_ref(x, block)[:2],
         (kern, "int8_dequantize"): lambda q, s, block: ref.int8_dequant_ref(
@@ -375,6 +430,11 @@ def plain_versions(kern, ref, kattn=None):
         plain[(kattn, "flash_attention")] = \
             lambda q, k, v, causal=True, window=None: ref.attention_ref(
                 q, k, v, causal=causal, window=window)
+    if kssd is not None:
+        plain[(kssd, "ssd_scan")] = \
+            lambda x, dt, A, B, C, chunk=64: ref.ssd_ref(x, dt, A, B, C)[0]
+    if krg is not None:
+        plain[(krg, "rglru_scan")] = lambda a, b: ref.rglru_ref(a, b)[0]
     saved = {key: getattr(*key) for key in plain}
     for (mod, name), fn in plain.items():
         setattr(mod, name, fn)
@@ -540,10 +600,11 @@ def recording_windows(kattn):
         kattn.flash_attention = real
 
 
-def serve(torch, kattn, cfg, batch, prompt_len, gen_len, seed=0):
+def serve(torch, counters, cfg, batch, prompt_len, gen_len, seed=0):
     """``cfg`` at random weights through ``DecodeEngine.generate`` on the
-    card, launches counted from zero; returns the model, params, engine,
-    prompt, result, the launches and the prefill/decode seconds."""
+    card, the launches of every wrapper module in ``counters`` counted from
+    zero; returns the model, params, engine, prompt, result, the launches
+    and the prefill/decode seconds."""
     from repro_torch.models import build_model
     from repro_torch.serving import DecodeEngine
     model = build_model(cfg)
@@ -566,12 +627,14 @@ def serve(torch, kattn, cfg, batch, prompt_len, gen_len, seed=0):
 
     model.prefill = timed_prefill
     torch.cuda.synchronize()
-    kattn.reset_launch_counts()
+    for counter in counters:
+        counter.reset_launch_counts()
     t0 = time.perf_counter()
     res = engine.generate(prompt, gen_len)
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
-    launches = dict(kattn.launch_counts)
+    launches = {k: n for counter in counters
+                for k, n in counter.launch_counts.items()}
     model.prefill = real_prefill
     return {"model": model, "params": params, "engine": engine,
             "prompt": prompt, "res": res, "launches": launches,
@@ -593,7 +656,8 @@ def serving_phase(torch, kern, kattn, ref):
     for dtype in ("float32", "bfloat16"):
         cfg = dataclasses.replace(base, dtype=dtype, param_dtype=dtype)
         label = f"qwen2-0.5b {dtype}"
-        run = serve(torch, kattn, cfg, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN)
+        run = serve(torch, (kattn,), cfg, SERVE_BATCH, SERVE_PROMPT,
+                    SERVE_GEN)
         res, eng, prompt = run["res"], run["engine"], run["prompt"]
         n = run["launches"]["flash_attention"]
         check(n == layers, f"{label}: flash_attention launched {n} times in "
@@ -655,7 +719,7 @@ def serving_phase(torch, kern, kattn, ref):
     label = "gemma3-12b reduced float32"
     cfg = reduced(get_config("gemma3-12b"), use_kernels=True)
     with recording_windows(kattn) as seen:
-        run = serve(torch, kattn, cfg, 4, 40, 12)
+        run = serve(torch, (kattn,), cfg, 4, 40, 12)
     windows = seen[-cfg.num_layers:]
     n = run["launches"]["flash_attention"]
     check(n == cfg.num_layers and windows == [cfg.sliding_window, None],
@@ -668,6 +732,301 @@ def serving_phase(torch, kern, kattn, ref):
     out["launches"][label] = n
     print(f"serve {label}: launches {n} (windows {windows}), tokens equal "
           "to the plain versions'", flush=True)
+    return out
+
+
+def ssd_inputs(torch, gen, bt, s, h, p, n, dtype):
+    """x, dt, A, B, C of the SSD scan: normal x, B, C in ``dtype``,
+    dt = softplus(normal) and A = -exp(normal / 2) in float32, as the
+    reference's sweep draws them."""
+    dt_ = getattr(torch, dtype)
+    x = torch.randn((bt, s, h, p), generator=gen, device="cuda").to(dt_)
+    dt = torch.nn.functional.softplus(
+        torch.randn((bt, s, h), generator=gen, device="cuda"))
+    A = -torch.exp(torch.randn((h,), generator=gen, device="cuda") * 0.5)
+    B = torch.randn((bt, s, n), generator=gen, device="cuda").to(dt_)
+    C = torch.randn((bt, s, n), generator=gen, device="cuda").to(dt_)
+    return x, dt, A, B, C
+
+
+def ssd_work(bt, s, h, p, n, chunk):
+    """Operations of the chunked scan on these shapes: per chunk of L
+    positions, C B^T on the causal triangle (shared by the heads), and per
+    head the triangle's product with x, C times the state and the state
+    update."""
+    ops = 0
+    for s0 in range(0, s, chunk):
+        ln = min(chunk, s - s0)
+        tri = ln * (ln + 1) // 2
+        ops += 2 * tri * n + h * (2 * tri * p + 4 * ln * p * n)
+    return bt * ops
+
+
+def ssm_kernel_phase(torch, kssd, krg, ref):
+    """``ssd_scan`` and ``rglru_scan`` against their plain versions on the
+    card at SSD_CASES (float32 and bfloat16), a strided-input case and
+    RGLRU_CASES; kernel and plain version timed at the full-width shapes
+    (the last case of each).  Returns the two kernels' records."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    recs = {"ssd_scan": {"max_abs_err": 0.0, "max_rel_err": 0.0,
+                         "timed": {}},
+            "rglru_scan": {"max_abs_err": 0.0, "timed": {}}}
+    rec = recs["ssd_scan"]
+    for case in SSD_CASES:
+        bt, s, h, p, n, chunk = case
+        for dtype in ("float32", "bfloat16"):
+            ins = ssd_inputs(torch, gen, bt, s, h, p, n, dtype)
+            y = kssd.ssd_scan(*ins, chunk=chunk)
+            want, _ = ref.ssd_ref(*ins)
+            torch.cuda.synchronize()
+            at = f"{case} {dtype}"
+            check(y.dtype == ins[0].dtype and y.shape == ins[0].shape,
+                  f"ssd_scan: wrong output {y.dtype} {tuple(y.shape)} at {at}")
+            err = float((y.float() - want.float()).abs().max())
+            rel = err / float(want.float().abs().max())
+            check(bool(torch.isfinite(y).all()) and rel < SSD_TOL[dtype],
+                  f"ssd_scan differs from its plain version at {at}: max "
+                  f"|diff| / max |plain| {rel}")
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            rec["max_rel_err"] = max(rec["max_rel_err"], rel)
+            print(f"ssd_scan {at}: max |kernel - plain| {err!r}, relative "
+                  f"{rel!r}", flush=True)
+            if case == SSD_CASES[-1]:
+                nbytes = sum(t.numel() * t.element_size() for t in ins) \
+                    + y.numel() * y.element_size()
+                ops = ssd_work(*case)
+                rate = BF16_OPS_PER_S if dtype == "bfloat16" \
+                    else F32_OPS_PER_S
+                b_ms, b_by = bound_ms(nbytes, ops, rate)
+                t = {"shape": list(case), "dtype": dtype, "bytes": nbytes,
+                     "ops": ops, "bound_ms": b_ms, "bound_by": b_by,
+                     "ms": time_ms(torch, lambda: kssd.ssd_scan(
+                         *ins, chunk=chunk), 5),
+                     "plain_ms": time_ms(torch, lambda: ref.ssd_ref(*ins), 1,
+                                         reps=3, warmup=1),
+                     "library_ms": None}
+                rec["timed"][dtype] = t
+                print(f"ssd_scan {at}: kernel {t['ms']:.5f} ms, plain "
+                      f"{t['plain_ms']:.5f} ms, bound {b_ms:.5f} ms ({b_by})",
+                      flush=True)
+            del ins, y, want
+    # strided inputs: x, B and C as column slices of one projection, as
+    # ssd_apply passes them; the kernel reads them in place
+    bt, s, h, p, n, chunk = SSD_CASES[-1]
+    for dtype in ("float32", "bfloat16"):
+        xbc = torch.randn((bt, s, h * p + 2 * n), generator=gen,
+                          device="cuda").to(getattr(torch, dtype))
+        xs, B, C = torch.split(xbc, [h * p, n, n], dim=-1)
+        x = xs.reshape(bt, s, h, p)
+        dt = torch.nn.functional.softplus(
+            torch.randn((bt, s, h), generator=gen, device="cuda"))
+        A = -torch.exp(torch.randn((h,), generator=gen, device="cuda") * 0.5)
+        y = kssd.ssd_scan(x, dt, A, B, C, chunk=chunk)
+        y_c = kssd.ssd_scan(x.contiguous(), dt, A, B.contiguous(),
+                            C.contiguous(), chunk=chunk)
+        want, _ = ref.ssd_ref(x, dt, A, B, C)
+        torch.cuda.synchronize()
+        rel = float((y.float() - want.float()).abs().max()) \
+            / float(want.float().abs().max())
+        check(torch.equal(y, y_c) and rel < SSD_TOL[dtype],
+              f"ssd_scan on strided inputs ({dtype}): equal to contiguous "
+              f"{torch.equal(y, y_c)}, relative difference {rel}")
+        rec["max_rel_err"] = max(rec["max_rel_err"], rel)
+        print(f"ssd_scan strided {SSD_CASES[-1]} {dtype}: equal to the "
+              f"contiguous inputs' result, relative {rel!r}", flush=True)
+        del xbc, xs, B, C, x, y, y_c, want
+    rec = recs["rglru_scan"]
+    for case in RGLRU_CASES:
+        # the model's gates: a in (0.9, 1) (layers.py:610-612, 629-630)
+        a = torch.rand(case, generator=gen, device="cuda") * 0.099 + 0.9
+        b = torch.randn(case, generator=gen, device="cuda")
+        h = krg.rglru_scan(a, b)
+        want, _ = ref.rglru_ref(a, b)
+        torch.cuda.synchronize()
+        err = float((h - want).abs().max())
+        check(h.dtype == torch.float32 and h.shape == a.shape
+              and bool(torch.allclose(h, want, atol=RGLRU_ATOL,
+                                      rtol=RGLRU_RTOL)),
+              f"rglru_scan differs from its plain version at {case}: max "
+              f"|diff| {err}")
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        print(f"rglru_scan {case}: max |kernel - plain| {err!r}", flush=True)
+        if case == RGLRU_CASES[-1]:
+            n = a.numel()
+            b_ms, b_by = bound_ms(12 * n, 2 * n)
+            t = {"shape": list(case), "bytes": 12 * n, "ops": 2 * n,
+                 "bound_ms": b_ms, "bound_by": b_by,
+                 "ms": time_ms(torch, lambda: krg.rglru_scan(a, b), 5),
+                 "plain_ms": time_ms(torch, lambda: ref.rglru_ref(a, b), 1,
+                                     reps=3, warmup=1),
+                 "library_ms": None}
+            rec["timed"]["float32"] = t
+            print(f"rglru_scan {case}: kernel {t['ms']:.5f} ms, plain "
+                  f"{t['plain_ms']:.5f} ms, bound {b_ms:.5f} ms ({b_by})",
+                  flush=True)
+        del a, b, h, want
+    torch.cuda.empty_cache()
+    return recs
+
+
+def _layer_launches(cfg):
+    """The launches one full-sequence forward of ``cfg`` makes under
+    use_kernels: one per layer of each kernel's kind."""
+    kinds = cfg.layer_kinds
+    return {"flash_attention": sum(k in ("global", "local") for k in kinds),
+            "ssd_scan": kinds.count("ssd"),
+            "rglru_scan": kinds.count("rglru")}
+
+
+def ssm_forward_phase(torch, kern, kattn, kssd, krg, ref):
+    """``DecoderLM.loss`` of mamba2-130m and recurrentgemma-2b at full width
+    with use_kernels=True on SSM_BATCH x SSM_SEQ random tokens, float32 and
+    bfloat16, held against the same call with the plain versions on the
+    card.  Returns the launches of each run and the throughputs."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    counters = (kattn, kssd, krg)
+    out = {"launches": {}, "throughput": {}}
+    for arch in SSM_ARCHS:
+        base = dataclasses.replace(get_config(arch), use_kernels=True)
+        want = _layer_launches(base)
+        for dtype in ("float32", "bfloat16"):
+            label = f"{arch} {dtype} loss"
+            cfg = dataclasses.replace(base, dtype=dtype, param_dtype=dtype)
+            model = build_model(cfg)
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            params = model.init(gen, device="cuda")
+            toks = torch.randint(0, cfg.vocab_size, (SSM_BATCH, SSM_SEQ + 1),
+                                 generator=gen, device="cuda")
+            batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+            with torch.inference_mode():
+                model.loss(params, {k: v[:, :128] for k, v in batch.items()})
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                for counter in counters:
+                    counter.reset_launch_counts()
+                t0 = time.perf_counter()
+                loss_k, _ = model.loss(params, batch)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                launches = {k: n for counter in counters
+                            for k, n in counter.launch_counts.items()}
+                peak = torch.cuda.max_memory_allocated() / 1e9
+                logits_k = model.forward(params, batch["tokens"])[0] \
+                    if dtype == "float32" else None
+                with plain_versions(kern, ref, kattn, kssd, krg):
+                    for counter in counters:
+                        counter.reset_launch_counts()
+                    loss_p, _ = model.loss(params, batch)
+                    logits_p = model.forward(params, batch["tokens"])[0] \
+                        if dtype == "float32" else None
+                    check(not any(n for counter in counters
+                                  for n in counter.launch_counts.values()),
+                          f"{label}: the plain-version run launched a kernel")
+            ce_k, ce_p = float(loss_k), float(loss_p)
+            tp = {"seconds": secs,
+                  "tok_per_s": SSM_BATCH * SSM_SEQ / secs, "peak_gb": peak}
+            out["throughput"][label] = tp
+            out["launches"][label] = launches
+            print(f"{label}: {SSM_BATCH} x {SSM_SEQ} tokens in {secs:.4f} s "
+                  f"({tp['tok_per_s']:.1f} tok/s), peak {peak:.3f} GB, "
+                  f"launches {launches}, CE kernels {ce_k!r} plain "
+                  f"{ce_p!r}", flush=True)
+            check(launches == want,
+                  f"{label}: launches {launches}, want {want}")
+            check(math.isfinite(ce_k) and math.isfinite(ce_p),
+                  f"{label}: CE is not finite")
+            if dtype == "float32":
+                check(bool(torch.isfinite(logits_k).all()),
+                      f"{label}: logits are not finite")
+                scale = float(logits_p.abs().max())
+                # row by row: the logits of recurrentgemma-2b take 8.4 GB
+                diff = max(float((k - p).abs().max())
+                           for k, p in zip(logits_k, logits_p))
+                print(f"{label}: logits max |kernels - plain| {diff!r} of "
+                      f"max |logit| {scale!r}", flush=True)
+                check(diff <= PREFILL_RTOL * scale,
+                      f"{label}: logits differ by {diff} > {PREFILL_RTOL} * "
+                      f"{scale}")
+                check(abs(ce_k - ce_p) <= CE_RTOL * abs(ce_p),
+                      f"{label}: CE {ce_k} vs {ce_p} (relative {CE_RTOL})")
+            else:
+                check(abs(ce_k - ce_p) <= CE_ATOL_BF16,
+                      f"{label}: CE {ce_k} vs {ce_p} (within {CE_ATOL_BF16})")
+            del model, params, toks, batch, logits_k, logits_p, loss_k, loss_p
+            torch.cuda.empty_cache()
+    return out
+
+
+def ssm_serving_phase(torch, kern, kattn, kssd, krg, ref):
+    """mamba2-130m and recurrentgemma-2b at full width through
+    ``DecodeEngine.generate`` with use_kernels=True, float32 and bfloat16:
+    SSM_BATCH prompts of SSM_SEQ tokens and SSM_GEN greedy tokens.  The
+    prefill launches flash attention on each local layer and no SSM kernel,
+    as in the reference.  Float32 tokens must equal those of the plain
+    versions' run; bfloat16 scores must agree to SCORE_ATOL."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    counters = (kattn, kssd, krg)
+    out = {"launches": {}, "throughput": {}}
+    for arch in SSM_ARCHS:
+        base = dataclasses.replace(get_config(arch), use_kernels=True)
+        want = dict(_layer_launches(base), ssd_scan=0, rglru_scan=0)
+        for dtype in ("float32", "bfloat16"):
+            label = f"{arch} {dtype} serve"
+            cfg = dataclasses.replace(base, dtype=dtype, param_dtype=dtype)
+            torch.cuda.reset_peak_memory_stats()
+            run = serve(torch, counters, cfg, SSM_BATCH, SSM_SEQ, SSM_GEN)
+            res, eng, prompt = run["res"], run["engine"], run["prompt"]
+            tp = {"prefill_s": run["prefill_s"], "decode_s": run["decode_s"],
+                  "prefill_tok_per_s": SSM_BATCH * SSM_SEQ / run["prefill_s"],
+                  "decode_tok_per_s": SSM_BATCH * (SSM_GEN - 1)
+                  / run["decode_s"],
+                  "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+            out["throughput"][label] = tp
+            out["launches"][label] = run["launches"]
+            print(f"{label}: batch {SSM_BATCH}, prompt {SSM_SEQ}, {SSM_GEN} "
+                  f"tokens: prefill {tp['prefill_s']:.4f} s "
+                  f"({tp['prefill_tok_per_s']:.1f} tok/s), decode "
+                  f"{tp['decode_s']:.4f} s ({tp['decode_tok_per_s']:.1f} "
+                  f"tok/s), peak {tp['peak_gb']:.3f} GB, launches "
+                  f"{run['launches']}", flush=True)
+            check(run["launches"] == want,
+                  f"{label}: launches {run['launches']}, want {want}")
+            check(np.isfinite(res.logprobs).all(),
+                  f"{label}: a log-probability is not finite")
+            if dtype == "float32":
+                with plain_versions(kern, ref, kattn, kssd, krg):
+                    for counter in counters:
+                        counter.reset_launch_counts()
+                    plain = eng.generate(prompt, SSM_GEN)
+                    check(not any(n for counter in counters
+                                  for n in counter.launch_counts.values()),
+                          f"{label}: the plain-version run launched a kernel")
+                same = int((res.tokens == plain.tokens).sum())
+                check(same == res.tokens.size,
+                      f"{label}: {res.tokens.size - same} generated tokens "
+                      "differ from the plain versions'")
+                print(f"{label}: all {same} tokens equal to the plain "
+                      "versions'", flush=True)
+            else:
+                tokens = torch.as_tensor(res.tokens, device="cuda")
+                score_k = eng.score_continuation(prompt, tokens)
+                with plain_versions(kern, ref, kattn, kssd, krg):
+                    score_p = eng.score_continuation(prompt, tokens)
+                d = float(np.abs(score_k - score_p).max())
+                print(f"{label}: score_continuation kernels {score_k!r} "
+                      f"plain {score_p!r} max |diff| {d!r}", flush=True)
+                check(np.isfinite(score_k).all()
+                      and np.isfinite(score_p).all(),
+                      f"{label}: a score is not finite")
+                check(d <= SCORE_ATOL,
+                      f"{label}: scores differ by {d} > {SCORE_ATOL}")
+            del run, res, eng, prompt
+            torch.cuda.empty_cache()
     return out
 
 
@@ -750,6 +1109,8 @@ def main() -> int:
     from repro_torch.kernels import attention as kattn
     from repro_torch.kernels import comms as kern
     from repro_torch.kernels import ref
+    from repro_torch.kernels import rglru_scan as krg
+    from repro_torch.kernels import ssd_scan as kssd
 
     # TF32 rule: float32 products and convolutions in full float32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -778,6 +1139,9 @@ def main() -> int:
         attn = attention_kernel_phase(torch, kattn, ref)
         launches = main_path_phase(torch, kern, ref)
         served = serving_phase(torch, kern, kattn, ref)
+        ssm = ssm_kernel_phase(torch, kssd, krg, ref)
+        ssm_fwd = ssm_forward_phase(torch, kern, kattn, kssd, krg, ref)
+        ssm_served = ssm_serving_phase(torch, kern, kattn, kssd, krg, ref)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -803,18 +1167,44 @@ def main() -> int:
             "main_path_shape": {"shape": list(SHAPES[0]), **small},
         })
     a, b = attn["timed"]
+
+    # launches of each LM kernel, by run: serving, then the SSM loss and
+    # serving runs
+    def runs_of(name):
+        return {label: c[name] for runs in (ssm_fwd, ssm_served)
+                for label, c in runs["launches"].items() if c[name]}
+
+    attn_runs = {**served["launches"], **runs_of("flash_attention")}
     kernels.append({
         "name": "flash_attention", "route": "cuda",
         "source": SOURCE.format("flash_attention"),
         "replaces": ATTN_TPU_KERNEL,
-        "launches": sum(served["launches"].values()),
-        "launches_by_run": served["launches"],
+        "launches": sum(attn_runs.values()),
+        "launches_by_run": attn_runs,
         "max_abs_err": attn["max_abs_err"],
         "ms": a["ms"], "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
         "bound_by": a["bound_by"], "library_ms": a["library_ms"],
         "f32_core_ms": a["f32_core_ms"], "shape": a["shape"],
         "shape_b": b, "serving": served["throughput"],
     })
+    for name, replaces, timed in (
+            ("ssd_scan", SSD_TPU_KERNEL, "bfloat16"),
+            ("rglru_scan", RGLRU_TPU_KERNEL, "float32")):
+        rec, by_run = ssm[name], runs_of(name)
+        t = rec["timed"][timed]
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCE.format(name),
+            "replaces": replaces, "launches": sum(by_run.values()),
+            "launches_by_run": by_run, "max_abs_err": rec["max_abs_err"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None, "shape": t["shape"], "dtype": timed,
+            "timed": rec["timed"],
+            **({"max_rel_err": rec["max_rel_err"]} if name == "ssd_scan"
+               else {}),
+        })
+    print(json.dumps({"ssm": {"loss": ssm_fwd["throughput"],
+                              "serving": ssm_served["throughput"]}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

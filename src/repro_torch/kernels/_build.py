@@ -21,8 +21,8 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 # -O3 and IEEE arithmetic: no --use_fast_math (see the division rules in
-# csrc/int8_codec.cu and csrc/sign_codec.cu, and the exactness note of
-# csrc/flash_attention.cu)
+# csrc/int8_codec.cu and csrc/sign_codec.cu, and the exactness notes of
+# csrc/flash_attention.cu, csrc/ssd_scan.cu and csrc/rglru_scan.cu)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -43,6 +43,14 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "flash_attention": {
         "hsgd_flash_attention": (_P, _P, _P, _P, _I32, _I32, _I32, _I32,
                                  _I32, _I32, _I32, _I32, _I32, _P),
+    },
+    "ssd_scan": {
+        "hsgd_ssd_scan": (_P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32,
+                          _I32, _I32, _I32, _I64, _I64, _I64, _I64, _I64,
+                          _I64, _P),
+    },
+    "rglru_scan": {
+        "hsgd_rglru_scan": (_P, _P, _P, _I32, _I32, _I32, _P),
     },
 }
 

@@ -10,7 +10,9 @@ The wrapper checks its inputs and raises on anything the kernel does not
 take, allocates the output, and then either launches the CUDA kernel on
 PyTorch's current stream (CUDA tensors) or runs the plain version
 :func:`repro_torch.kernels.ref.attention_ref` (CPU tensors, and only
-then).  Every launch adds one to :data:`launch_counts`.
+then).  Every launch adds one to :data:`launch_counts`.  It refuses
+inputs that require grad while autograd records
+(:func:`repro_torch.kernels.refuse_grad`): the kernel has no backward.
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ from typing import Dict, Optional
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import ref, refuse_grad
 
 # the head dims the kernel is built for: those of the registry's configs
 # and of their reduced variants
@@ -94,6 +96,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     bfloat16 -> (B, Sq, Hq, D) in q's dtype.  Float32 arithmetic inside."""
     causal = bool(causal)
     _check(q, k, v, causal, window)
+    refuse_grad("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, causal=causal, window=window)
     b, sq, hq, d = q.shape

@@ -2,12 +2,14 @@
 ``repro.kernels.ref``).
 
 They run on any device.  The kernel wrappers in
-:mod:`repro_torch.kernels.comms` and :mod:`repro_torch.kernels.attention`
+:mod:`repro_torch.kernels.comms`, :mod:`repro_torch.kernels.attention`,
+:mod:`repro_torch.kernels.ssd_scan` and :mod:`repro_torch.kernels.rglru_scan`
 use them for CPU tensors, the CPU tests hold them against the JAX
 package, and ``chip_smoke.py`` holds each CUDA kernel against them on the
-card: the codecs bitwise, attention to a tolerance (see
-:func:`attention_ref`).  Every operation of the codecs' versions is chosen
-so that CPU, card and the jitted reference round identically:
+card: the codecs bitwise, attention and the two scans to a tolerance (see
+:func:`attention_ref`, :func:`ssd_ref`, :func:`rglru_ref`).  Every
+operation of the codecs' versions is chosen so that CPU, card and the
+jitted reference round identically:
 
 * Rounding rule: ``torch.round`` rounds half to even, like ``jnp.round``.
 * Division rule: the int8 scale is ``amax * f32(1/127)`` (XLA's folded
@@ -169,3 +171,48 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     logits = torch.where(mask, logits, -1e30)
     probs = torch.softmax(logits, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", probs, vf).to(q.dtype)
+
+
+def ssd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+            B: torch.Tensor, C: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The SSD recurrence step by step, the plain version of the SSD scan
+    kernel.
+
+    x (Bt, S, H, P); dt (Bt, S, H) >= 0; A (H,) negative; B, C (Bt, S, N).
+    h_t = exp(dt_t A) h_{t-1} + dt_t B_t x_t and y_t = C_t . h_t, in
+    float32 from a zero state.  Returns y (Bt, S, H, P) in x's dtype and
+    the final state (Bt, H, P, N) in float32.  Inputs may be strided views.
+    The kernel takes the chunked (dual) form, which sums in another order,
+    so the two agree to a tolerance, not bitwise."""
+    bt, s, h, p = x.shape
+    n = B.shape[-1]
+    xf, dtf = x.to(torch.float32), dt.to(torch.float32)
+    Af = A.to(torch.float32)
+    Bf, Cf = B.to(torch.float32), C.to(torch.float32)
+    state = torch.zeros((bt, h, p, n), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(s):
+        dA = torch.exp(dtf[:, t] * Af)                              # (Bt, H)
+        state = state * dA[..., None, None] + torch.einsum(
+            "bh,bn,bhp->bhpn", dtf[:, t], Bf[:, t], xf[:, t])
+        ys.append(torch.einsum("bn,bhpn->bhp", Cf[:, t], state))
+    y = torch.stack(ys, 1) if ys else xf.new_zeros((bt, 0, h, p))
+    return y.to(x.dtype), state
+
+
+def rglru_ref(a: torch.Tensor, b: torch.Tensor,
+              h0: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The linear recurrence h_t = a_t h_{t-1} + b_t step by step, the plain
+    version of the RG-LRU scan kernel.  a, b (Bt, S, W); h0 (Bt, W) or a
+    zero start.  Returns (h_1..h_S (Bt, S, W), h_S), both float32."""
+    af, bf = a.to(torch.float32), b.to(torch.float32)
+    h = torch.zeros((a.shape[0], a.shape[-1]), dtype=torch.float32,
+                    device=a.device) if h0 is None else h0.to(torch.float32)
+    hs = []
+    for t in range(a.shape[1]):
+        h = af[:, t] * h + bf[:, t]
+        hs.append(h)
+    out = torch.stack(hs, 1) if hs else af.new_zeros(af.shape)
+    return out, h

@@ -1,0 +1,148 @@
+"""The SSD scan kernel: the wrapper over ``csrc/ssd_scan.cu``.
+
+Counterpart of the Pallas TPU kernel ``repro.kernels.ssd_scan``:
+:func:`ssd_scan` is Mamba-2's chunked state-space scan, y_t = C_t . h_t
+with h_t = exp(dt_t A) h_{t-1} + dt_t B_t x_t from a zero state.
+
+The wrapper checks its inputs and raises on anything the kernel does not
+take, allocates the output, and then either launches the CUDA kernel on
+PyTorch's current stream (CUDA tensors) or runs the plain version
+:func:`repro_torch.kernels.ref.ssd_ref` (CPU tensors, and only then).
+Every launch adds one to :data:`launch_counts`.  It refuses inputs that
+require grad while autograd records (:func:`repro_torch.kernels.refuse_grad`).
+
+Strided inputs: the kernel takes the batch and sequence strides of x, B
+and C and reads them in place when their inner dims are packed (x's
+(H, P), B's and C's N), as for the column slices of one projection that
+``models.layers.ssd_apply`` passes; any other layout is copied to a
+contiguous tensor first (:func:`kernel_operands`).  dt and A are made
+contiguous.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.kernels import ref, refuse_grad
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the kernel's register tiles: chunk <= 64 rows, head dim <= 64 columns,
+# state <= 256 columns; and the card's shared memory for one CTA
+MAX_CHUNK, MAX_HEAD_DIM, MAX_STATE = 64, 64, 256
+MAX_SMEM = 232448
+_GRID_Y = 65535           # CUDA's limit on gridDim.y
+_INT32 = 2**31 - 1
+
+# launches of the CUDA kernel since the last reset_launch_counts()
+launch_counts: Dict[str, int] = {"ssd_scan": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+def smem_bytes(chunk: int, p: int, n: int) -> int:
+    """Dynamic shared memory of one CTA: the (P, N) state, the chunk's x,
+    B, C, the (Q, Q) decay matrix and three Q-vectors, in float32, with
+    rows of B, C and the state padded by one float."""
+    return 4 * (p * (n + 1) + chunk * p + 2 * chunk * (n + 1)
+                + chunk * (chunk + 1) + 3 * chunk)
+
+
+def _check(x, dt, A, B, C, chunk) -> None:
+    name = "ssd_scan"
+    for what, t in (("x", x), ("dt", dt), ("A", A), ("B", B), ("C", C)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name}: {what} must be a torch.Tensor")
+        if t.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"{name}: {what} is on {t.device}; the kernel "
+                             "takes CUDA tensors and the plain version CPU "
+                             "ones")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"{name}: x must be float32 or bfloat16, got "
+                        f"{x.dtype}")
+    if not x.dtype == B.dtype == C.dtype:
+        raise TypeError(f"{name}: x, B and C must share one dtype, got "
+                        f"{x.dtype}, {B.dtype}, {C.dtype}")
+    if dt.dtype != torch.float32 or A.dtype != torch.float32:
+        raise TypeError(f"{name}: dt and A must be float32, got {dt.dtype} "
+                        f"and {A.dtype}")
+    if len({t.device for t in (x, dt, A, B, C)}) != 1:
+        raise ValueError(f"{name}: inputs on different devices "
+                         f"{[str(t.device) for t in (x, dt, A, B, C)]}")
+    if x.ndim != 4:
+        raise ValueError(f"{name}: x must be 4-D (Bt, S, H, P), got shape "
+                         f"{tuple(x.shape)}")
+    bt, s, h, p = x.shape
+    n = B.shape[-1] if B.ndim == 3 else -1
+    if (dt.shape != (bt, s, h) or A.shape != (h,) or B.shape != (bt, s, n)
+            or C.shape != B.shape):
+        raise ValueError(f"{name}: want dt (Bt, S, H), A (H,), B and C "
+                         f"(Bt, S, N) for x {tuple(x.shape)}; got dt "
+                         f"{tuple(dt.shape)}, A {tuple(A.shape)}, B "
+                         f"{tuple(B.shape)}, C {tuple(C.shape)}")
+    if isinstance(chunk, bool) or not isinstance(chunk, int) or chunk < 1:
+        raise ValueError(f"{name}: chunk must be an int >= 1, got {chunk!r}")
+
+
+def kernel_operands(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor
+                    ) -> Tuple[Tuple[torch.Tensor, ...], Tuple[int, ...]]:
+    """(x, B, C) as the kernel reads them, and their (batch, sequence)
+    strides in elements: each tensor itself where its inner dims are packed
+    (x's (H, P), B's and C's N), else a contiguous copy."""
+    p = x.shape[3]
+    if not (x.stride(3) == 1 and x.stride(2) == p):
+        x = x.contiguous()
+    out, strides = [x], [x.stride(0), x.stride(1)]
+    for t in (B, C):
+        if t.stride(2) != 1:
+            t = t.contiguous()
+        out.append(t)
+        strides += [t.stride(0), t.stride(1)]
+    return tuple(out), tuple(strides)
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             B: torch.Tensor, C: torch.Tensor, *,
+             chunk: int = 64) -> torch.Tensor:
+    """x (Bt, S, H, P); dt (Bt, S, H) float32 >= 0; A (H,) float32 < 0;
+    B, C (Bt, S, N) in x's dtype (float32 or bfloat16) -> y (Bt, S, H, P)
+    in x's dtype.  Float32 arithmetic inside, in chunks of ``chunk``
+    positions; a ragged last chunk is masked (the result equals that of
+    inputs zero-padded to a multiple of ``chunk``, cut back to S)."""
+    _check(x, dt, A, B, C, chunk)
+    refuse_grad("ssd_scan", x, dt, A, B, C)
+    if x.device.type == "cpu":
+        return ref.ssd_ref(x, dt, A, B, C)[0]
+    bt, s, h, p = x.shape
+    n = B.shape[-1]
+    y = torch.empty((bt, s, h, p), dtype=x.dtype, device=x.device)
+    if y.numel() == 0:
+        return y
+    if chunk > MAX_CHUNK or p > MAX_HEAD_DIM or n > MAX_STATE:
+        raise ValueError(f"ssd_scan: the kernel takes chunk <= {MAX_CHUNK}, "
+                         f"head dim <= {MAX_HEAD_DIM} and state <= "
+                         f"{MAX_STATE}; got {chunk}, {p}, {n}")
+    if smem_bytes(chunk, p, n) > MAX_SMEM:
+        raise ValueError(f"ssd_scan: chunk {chunk}, head dim {p}, state {n} "
+                         f"need {smem_bytes(chunk, p, n)} bytes of shared "
+                         f"memory, more than {MAX_SMEM}")
+    if bt > _GRID_Y or max(s, h) > _INT32:
+        raise ValueError(f"ssd_scan: shape {tuple(x.shape)} is past the "
+                         "kernel's grid")
+    (x, B, C), strides = kernel_operands(x, B, C)
+    dt, A = dt.contiguous(), A.contiguous()
+    from repro_torch.kernels._build import load
+    fn = load("ssd_scan").hsgd_ssd_scan
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+                 C.data_ptr(), y.data_ptr(), _DTYPES[x.dtype], bt, s, h, p,
+                 n, chunk, *strides, stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_scan: CUDA kernel launch failed with "
+                           f"cudaError {err}")
+    launch_counts["ssd_scan"] += 1
+    return y

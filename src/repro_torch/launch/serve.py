@@ -5,10 +5,11 @@ decode N tokens, report tokens/s (PyTorch counterpart of
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
       --reduced --batch 4 --prompt-len 32 --gen 16
 
-It runs on the CUDA card.  Attention goes through the flash attention
-kernel only where the config sets ``use_kernels`` (a config field that the
-caller sets, as ``use_pallas`` is in the reference); this launcher keeps
-the registry's default, the plain path.
+It runs on the CUDA card.  The kernels (flash attention, the SSD and
+RG-LRU scans) run only where the config sets ``use_kernels`` (a config
+field that the caller sets, as ``use_pallas`` is in the reference); this
+launcher keeps the registry's default, the plain path.  Its default
+architecture is the reference's, mamba2-130m.
 """
 from __future__ import annotations
 
@@ -27,8 +28,7 @@ def main(argv=None, device: DeviceLike = "cuda"):
     """Parse ``argv`` and serve on ``device`` (``"cpu"`` for tests)."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="mamba2-130m",
-                    help="architecture id; the SSD (mamba2-130m, the "
-                         "default), RG-LRU, MoE and encoder-decoder "
+                    help="architecture id; the MoE and encoder-decoder "
                          "families raise NotImplementedError until their "
                          "slice of the port lands (ROADMAP A9)")
     ap.add_argument("--reduced", action="store_true")

@@ -1,22 +1,29 @@
-"""Model-layer primitives of the dense and local-attention decoder LMs
-(PyTorch counterpart of ``repro.models.layers``).
+"""Model-layer primitives of the decoder LMs (PyTorch counterpart of
+``repro.models.layers``).
 
 Plain functions over dicts of tensors, batch-first, with the reference's
 names, params keys and (d_in, d_out) weight layout.  Random init draws
 from an explicit ``torch.Generator`` on that generator's device.  This
-slice carries norms, RoPE, GQA attention (full-sequence, cache fill and
-one-token decode) and the four dense MLPs; MoE, conv1d, SSD and RG-LRU
-come with ROADMAP A9's later part.
+module carries norms, RoPE, GQA attention (full-sequence, cache fill and
+one-token decode), the four dense MLPs, the depthwise causal conv1d, the
+Mamba-2 SSD block and the Griffin RG-LRU block; MoE comes with ROADMAP
+A9's later part.
 
-Where ``cfg.use_kernels`` is set, full-sequence self-attention goes
-through the flash attention kernel (:mod:`repro_torch.kernels.attention`)
-under exactly the reference's condition; everywhere else attention is the
-plain PyTorch path below, which follows the reference's arithmetic:
-products in the activation dtype, logits and softmax in float32, the
-probabilities cast back to v's dtype before the product with v.
+Where ``cfg.use_kernels`` is set, the full-sequence forward goes through
+the CUDA kernels under exactly the reference's conditions: self-attention
+through flash attention (:mod:`repro_torch.kernels.attention`), the SSD
+scan of ``ssd_apply`` through :mod:`repro_torch.kernels.ssd_scan` and the
+RG-LRU recurrence of ``rglru_core`` through
+:mod:`repro_torch.kernels.rglru_scan`.  Everywhere else the plain PyTorch
+paths below follow the reference's arithmetic: attention's products in
+the activation dtype, logits and softmax in float32, the probabilities
+cast back to v's dtype before the product with v; the SSD scan in its
+chunked dual form; the RG-LRU recurrence as a parallel prefix scan; and
+the reference's float32 casts, one for one.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Optional, Tuple
 
@@ -25,6 +32,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import attention as kattn
+from repro_torch.kernels import rglru_scan as krg
+from repro_torch.kernels import ssd_scan as kssd
 
 Params = Dict[str, Any]
 
@@ -291,3 +300,324 @@ def mlp_apply(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     else:  # gelu
         h = _gelu(x @ p["wi"].to(x.dtype))
     return h @ p["wo"].to(x.dtype)
+
+
+def _einsum(eq: str, *ops: torch.Tensor) -> torch.Tensor:
+    """``jnp.einsum``'s type rule: the operands are promoted to one dtype
+    first (``torch.einsum`` refuses mixed dtypes)."""
+    dt = functools.reduce(torch.promote_types, (o.dtype for o in ops))
+    return torch.einsum(eq, *(o.to(dt) for o in ops))
+
+
+# --------------------------------------------------------------------------
+# depthwise causal conv1d (shared by ssd / rglru)
+# --------------------------------------------------------------------------
+def conv1d_init(gen: torch.Generator, channels: int, width: int,
+                dtype) -> Params:
+    dt = torch_dtype(dtype)
+    return {"w": normal(gen, (width, channels), 1.0 / math.sqrt(width)).to(dt),
+            "b": torch.zeros((channels,), dtype=dt, device=gen.device)}
+
+
+def conv1d_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, C). Causal depthwise conv, width from params; the taps are
+    added in the reference's order."""
+    w = p["w"].to(x.dtype)
+    width, s = w.shape[0], x.shape[-2]
+    xpad = F.pad(x, (0, 0, width - 1, 0))
+    out = xpad[..., 0:s, :] * w[0]
+    for i in range(1, width):
+        out = out + xpad[..., i:i + s, :] * w[i]
+    return out + p["b"].to(x.dtype)
+
+
+def conv1d_step(p: Params, buf: torch.Tensor,
+                x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Decode step. buf: (B, width-1, C) past inputs; x: (B, C).  Returns
+    (the new buffer, the output (B, C))."""
+    w = p["w"].to(x.dtype)
+    width = w.shape[0]
+    window = torch.cat([buf, x[..., None, :]], dim=-2)         # (B, width, C)
+    out = _einsum("...wc,wc->...c", window, w) + p["b"].to(x.dtype)
+    return (window[..., -(width - 1):, :] if width > 1 else buf), out
+
+
+def last_rows(x: torch.Tensor, n: int) -> torch.Tensor:
+    """The last ``n`` positions of x (B, S, C), zero-padded in front when
+    S < n: the conv buffer a prefill leaves for decode (a copy)."""
+    s = x.shape[1]
+    if s >= n:
+        return x[:, s - n:].clone()
+    return F.pad(x, (0, 0, n - s, 0))
+
+
+# --------------------------------------------------------------------------
+# Mamba-2 SSD block
+# --------------------------------------------------------------------------
+def ssd_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    d = cfg.d_model
+    di = cfg.ssm_expand * d
+    nh = di // cfg.ssm_head_dim
+    ns = cfg.ssm_state
+    dev = gen.device
+    f32 = torch.float32
+    return {
+        "in_proj": dense_init(gen, d, 2 * di + 2 * ns + nh, cfg.param_dtype),
+        "conv": conv1d_init(gen, di + 2 * ns, cfg.ssm_conv_width,
+                            cfg.param_dtype),
+        "A_log": torch.zeros((nh,), dtype=f32, device=dev),
+        "D": torch.ones((nh,), dtype=f32, device=dev),
+        "dt_bias": torch.zeros((nh,), dtype=f32, device=dev),
+        "out_norm": {"scale": torch.ones(
+            (di,), dtype=torch_dtype(cfg.param_dtype), device=dev)},
+        "out_proj": dense_init(gen, di, d, cfg.param_dtype),
+    }
+
+
+def _ssd_split(p: Params, x: torch.Tensor, cfg: ModelConfig):
+    d = cfg.d_model
+    di = cfg.ssm_expand * d
+    ns = cfg.ssm_state
+    nh = di // cfg.ssm_head_dim
+    zxbcdt = x @ p["in_proj"].to(x.dtype)
+    z, xbc, dt = torch.split(zxbcdt, [di, di + 2 * ns, nh], dim=-1)
+    return z, xbc, dt, di, ns, nh
+
+
+def ssd_scan_ref(x, dt, A, B, C, chunk: int):
+    """Chunked SSD, the model's default path (the reference's jnp
+    ``ssd_scan_ref``, its ``lax.scan`` over chunks a loop).
+
+    x: (Bt, S, H, P); dt: (Bt, S, H) (already softplus'ed, >=0);
+    A: (H,) negative; B, C: (Bt, S, N); S a multiple of ``chunk``.
+    Returns y: (Bt, S, H, P) in x's dtype and the final state
+    (Bt, H, P, N) in float32.
+    """
+    bt, s, h, p = x.shape
+    n = B.shape[-1]
+    q = chunk
+    assert s % q == 0, (s, q)
+    nc = s // q
+    xc = x.reshape(bt, nc, q, h, p)
+    dtc = dt.reshape(bt, nc, q, h)
+    Bc = B.reshape(bt, nc, q, n)
+    Cc = C.reshape(bt, nc, q, n)
+
+    dA = dtc * A                                       # (bt, nc, q, h) negative
+    cum = torch.cumsum(dA, dim=2)                      # within-chunk cumsum
+    # intra-chunk (dual quadratic form)
+    lt = cum[:, :, :, None, :] - cum[:, :, None, :, :]   # (bt,nc,q_i,q_j,h)
+    causal = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
+    decay = torch.exp(torch.where(causal[None, None, :, :, None], lt,
+                                  -math.inf))
+    G = _einsum("bcin,bcjn->bcij", Cc, Bc)                # (bt,nc,q,q)
+    M = G[..., None] * decay * dtc[:, :, None, :, :]      # (bt,nc,i,j,h)
+    y_intra = _einsum("bcijh,bcjhp->bcihp", M, xc)
+
+    # inter-chunk recurrence over states (dt and A are float32, so cum and
+    # everything built on it are float32)
+    chunk_decay = torch.exp(cum[:, :, -1])                # (bt,nc,h)
+    # each chunk's state contribution: sum_j exp(sum_{k>j} dA) dt_j B_j x_j
+    rev = torch.exp(cum[:, :, -1:, :] - cum)              # (bt,nc,q,h)
+    state_chunk = _einsum("bcjhp,bcjn->bchpn",
+                          (dtc * rev)[..., None] * xc, Bc)
+    state = torch.zeros((bt, h, p, n), dtype=torch.float32, device=x.device)
+    s_prevs = []                          # the state entering each chunk
+    for c in range(nc):
+        s_prevs.append(state)
+        state = state * chunk_decay[:, c, :, None, None] + state_chunk[:, c]
+    s_prev = torch.stack(s_prevs, 1)                      # (bt,nc,h,p,n)
+    y_inter = _einsum("bcin,bchpn->bcihp", Cc, s_prev) \
+        * torch.exp(cum)[..., None]
+    y = (y_intra + y_inter).reshape(bt, s, h, p)
+    return y.to(x.dtype), state
+
+
+def ssd_scan_padded(x, dt, A, B, C, chunk: int):
+    """:func:`ssd_scan_ref` on inputs zero-padded along S to a multiple of
+    ``chunk``, with y cut back to S (padded steps have dt = 0, so the
+    final state is that of the real ones)."""
+    s = x.shape[1]
+    pad = (-s) % chunk
+    if not pad:
+        return ssd_scan_ref(x, dt, A, B, C, chunk)
+    y, state = ssd_scan_ref(F.pad(x, (0, 0, 0, 0, 0, pad)),
+                            F.pad(dt, (0, 0, 0, pad)), A,
+                            F.pad(B, (0, 0, 0, pad)),
+                            F.pad(C, (0, 0, 0, pad)), chunk)
+    return y[:, :s], state
+
+
+def gated_rmsnorm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """The SSD block's output norm: rmsnorm(y * silu(z)) in float32, cast
+    to ``dtype``, times ``scale``."""
+    yf = (y * F.silu(z)).to(torch.float32)
+    ms = (yf ** 2).mean(-1, keepdim=True)
+    return (yf * torch.rsqrt(ms + 1e-6)).to(dtype) * scale.to(dtype)
+
+
+def ssd_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                use_kernels: bool):
+    """The SSD block over a sequence x (B, S, D): (out (B, S, D), final
+    SSM state or None, the pre-conv ``xbc`` a prefill keeps for its conv
+    buffer).  With ``use_kernels`` and a 4-D head split the scan is the
+    kernel's (no state comes back), else the chunked path, padded to the
+    chunk."""
+    z, xbc, dt, di, ns, nh = _ssd_split(p, x, cfg)
+    xbc_conv = F.silu(conv1d_apply(p["conv"], xbc))
+    xs, B, C = torch.split(xbc_conv, [di, ns, ns], dim=-1)
+    dt = F.softplus(dt.to(torch.float32) + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    xh = xs.reshape(xs.shape[:-1] + (nh, cfg.ssm_head_dim))
+    if use_kernels and xh.ndim == 4:
+        y, state = kssd.ssd_scan(xh, dt, A, B, C, chunk=cfg.ssm_chunk), None
+    else:
+        y, state = ssd_scan_padded(xh, dt, A, B, C, cfg.ssm_chunk)
+    y = y + xh * p["D"][:, None].to(x.dtype)
+    y = gated_rmsnorm(y.reshape(xs.shape), z, p["out_norm"]["scale"], x.dtype)
+    return y @ p["out_proj"].to(x.dtype), state, xbc
+
+
+def ssd_apply(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Training/prefill forward. x: (B, S, D) -> (B, S, D)."""
+    return ssd_forward(p, x, cfg, cfg.use_kernels)[0]
+
+
+def ssd_decode(p: Params, x: torch.Tensor, cfg: ModelConfig,
+               state: Params) -> Tuple[torch.Tensor, Params]:
+    """One-step decode. x: (B, 1, D); state: {'ssm': (B,H,P,N), 'conv':
+    (B,w-1,C)}.  Returns (y (B, 1, D), the new state)."""
+    z, xbc, dt, di, ns, nh = _ssd_split(p, x, cfg)
+    conv_buf, xbc1 = conv1d_step(p["conv"], state["conv"], xbc[:, 0])
+    xs, B, C = torch.split(F.silu(xbc1), [di, ns, ns], dim=-1)  # (B, di/ns)
+    dt1 = F.softplus(dt[:, 0].to(torch.float32) + p["dt_bias"])  # (B,H)
+    A = -torch.exp(p["A_log"])
+    xh = xs.reshape(xs.shape[:-1] + (nh, cfg.ssm_head_dim))       # (B,H,P)
+    dA = torch.exp(dt1 * A)                                        # (B,H)
+    s = state["ssm"] * dA[..., None, None] + _einsum(
+        "bh,bn,bhp->bhpn", dt1.to(x.dtype), B, xh)
+    y = _einsum("bn,bhpn->bhp", C, s) + xh * p["D"][:, None].to(x.dtype)
+    y = gated_rmsnorm(y.reshape(x.shape[0], di), z[:, 0],
+                      p["out_norm"]["scale"], x.dtype)
+    y = (y @ p["out_proj"].to(x.dtype))[:, None, :]
+    return y, {"ssm": s, "conv": conv_buf}
+
+
+def ssd_init_state(cfg: ModelConfig, batch: int, dtype: torch.dtype,
+                   device=None) -> Params:
+    di = cfg.ssm_expand * cfg.d_model
+    nh = di // cfg.ssm_head_dim
+    conv_dim = di + 2 * cfg.ssm_state
+    return {"ssm": torch.zeros((batch, nh, cfg.ssm_head_dim, cfg.ssm_state),
+                               dtype=dtype, device=device),
+            "conv": torch.zeros((batch, cfg.ssm_conv_width - 1, conv_dim),
+                                dtype=dtype, device=device)}
+
+
+# --------------------------------------------------------------------------
+# RG-LRU block (RecurrentGemma / Griffin)
+# --------------------------------------------------------------------------
+_RGLRU_C = 8.0
+
+
+def rglru_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    d, w = cfg.d_model, cfg.rglru_width
+    # Lambda init so that a = sigmoid(L)^c is in (0.9, 0.999)
+    u = torch.rand((w,), generator=gen, device=gen.device) * 0.099 + 0.9
+    root = u ** (1.0 / _RGLRU_C)
+    lam = torch.log(root / (1 - root))
+    return {
+        "in_x": dense_init(gen, d, w, cfg.param_dtype),
+        "in_gate": dense_init(gen, d, w, cfg.param_dtype),
+        "conv": conv1d_init(gen, w, cfg.conv1d_width, cfg.param_dtype),
+        "w_a": dense_init(gen, w, w, cfg.param_dtype),
+        "w_i": dense_init(gen, w, w, cfg.param_dtype),
+        "Lambda": lam.to(torch.float32),
+        "out": dense_init(gen, w, d, cfg.param_dtype),
+    }
+
+
+def rglru_gates(p: Params,
+                xs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """RG-LRU gate computation -> (a, b) of h_t = a_t h_{t-1} + b_t, both
+    float32."""
+    r = torch.sigmoid(xs @ p["w_a"].to(xs.dtype))          # recurrence gate
+    i = torch.sigmoid(xs @ p["w_i"].to(xs.dtype))          # input gate
+    # a_t = sigmoid(Lambda)^(c * r_t), computed in log space for stability
+    log_a = _RGLRU_C * r.to(torch.float32) * F.logsigmoid(p["Lambda"])
+    a = torch.exp(log_a)                                   # (B,S,W) in (0,1)
+    gated = (i * xs).to(torch.float32)
+    b = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * gated
+    return a, b
+
+
+def linear_scan(a: torch.Tensor,
+                b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inclusive scan along axis -2 under (a1, b1) o (a2, b2) =
+    (a1 a2, b1 a2 + b2), the reference's ``lax.associative_scan``: a
+    Hillis-Steele doubling scan, log2(S) passes that each combine every
+    position with the one ``d`` before it (d = 1, 2, 4, ...).  Returns the
+    prefix products of a and the recurrence h_t = a_t h_{t-1} + b_t from
+    h = 0."""
+    s = a.shape[-2]
+    d = 1
+    while d < s:
+        a_hi = a[..., d:, :]
+        b = torch.cat([b[..., :d, :], b[..., :-d, :] * a_hi + b[..., d:, :]],
+                      dim=-2)
+        a = torch.cat([a[..., :d, :], a[..., :-d, :] * a_hi], dim=-2)
+        d *= 2
+    return a, b
+
+
+def rglru_core(p: Params, xs: torch.Tensor,
+               h0: Optional[torch.Tensor] = None,
+               use_kernels: bool = False
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The RG-LRU recurrence. xs: (B, S, W) -> (ys in xs's dtype, h_final
+    in float32)."""
+    a, b = rglru_gates(p, xs)
+    if use_kernels and h0 is None and xs.ndim == 3:
+        bb = krg.rglru_scan(a, b)
+        return bb.to(xs.dtype), bb[..., -1, :]
+    aa, bb = linear_scan(a, b)
+    if h0 is not None:
+        bb = bb + aa * h0[..., None, :].to(torch.float32)
+    return bb.to(xs.dtype), bb[..., -1, :]
+
+
+def rglru_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                  use_kernels: bool):
+    """The RG-LRU block over a sequence x (B, S, D): (out (B, S, D), the
+    final h, the pre-conv inputs a prefill keeps for its conv buffer)."""
+    xs_pre = x @ p["in_x"].to(x.dtype)
+    gate = _gelu(x @ p["in_gate"].to(x.dtype))
+    xs = conv1d_apply(p["conv"], xs_pre)
+    ys, h_final = rglru_core(p, xs, use_kernels=use_kernels)
+    return (ys * gate) @ p["out"].to(x.dtype), h_final, xs_pre
+
+
+def rglru_apply(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Training/prefill. x: (B, S, D)."""
+    return rglru_forward(p, x, cfg, cfg.use_kernels)[0]
+
+
+def rglru_decode(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                 state: Params) -> Tuple[torch.Tensor, Params]:
+    """x: (B, 1, D); state: {'h': (B, W), 'conv': (B, w-1, W)}."""
+    xs = x[:, 0] @ p["in_x"].to(x.dtype)
+    gate = _gelu(x[:, 0] @ p["in_gate"].to(x.dtype))
+    conv_buf, xs = conv1d_step(p["conv"], state["conv"], xs)
+    a, b = rglru_gates(p, xs)
+    h = a * state["h"].to(torch.float32) + b
+    y = (h.to(x.dtype) * gate) @ p["out"].to(x.dtype)
+    return y[:, None, :], {"h": h, "conv": conv_buf}
+
+
+def rglru_init_state(cfg: ModelConfig, batch: int, dtype: torch.dtype,
+                     device=None) -> Params:
+    w = cfg.rglru_width
+    return {"h": torch.zeros((batch, w), dtype=torch.float32, device=device),
+            "conv": torch.zeros((batch, cfg.conv1d_width - 1, w),
+                                dtype=dtype, device=device)}

@@ -1,28 +1,38 @@
-"""Decoder-only LM for the dense and local-attention families (PyTorch
-counterpart of ``repro.models.transformer``).
+"""Decoder-only LM for the dense, local-attention, SSM (Mamba-2 SSD) and
+hybrid (Griffin RG-LRU + local attention) families (PyTorch counterpart of
+``repro.models.transformer``).
 
 Layers are grouped into *pattern units* (``cfg.block_pattern``) that repeat
 ``cfg.num_pattern_units`` times.  The params tree is the reference's, leaf
 for leaf: ``embed``, ``final_norm``, optional ``lm_head``, ``units`` (a
 tuple with one dict per pattern kind, every tensor stacked on a leading
-unit axis) and ``rem`` (the depth remainder's blocks).  Where the
-reference runs ``lax.scan`` over units, a Python loop here indexes the
-stacked tensors, so JAX params carry over through
-:func:`params_from_numpy` unchanged.
+unit axis) and ``rem`` (the depth remainder's blocks, e.g.
+recurrentgemma-2b's 2 trailing RG-LRU blocks).  Where the reference runs
+``lax.scan`` over units, a Python loop here indexes the stacked tensors,
+so JAX params carry over through :func:`params_from_numpy` unchanged.
 
 Three entry points per model:
   * ``loss``        — training forward + mean token CE
   * ``prefill``     — full-sequence forward that also fills decode caches
   * ``decode_step`` — one-token step against the caches
 
-Caches differ from the reference in two ways: ``decode_step`` writes the
-new token's k/v into the cache tensors in place (the reference builds new
-arrays with ``dynamic_update_slice``), so a cache passed to it must not be
-used again; and the position ``cache["pos"]`` is a Python int, so indexing
-the cache never waits for the card.
+Kernel routing is the reference's: under ``cfg.use_kernels`` the
+full-sequence forward (``forward``, ``loss``) launches flash attention on
+every attention layer, ``ssd_scan`` on every SSD layer and ``rglru_scan``
+on every RG-LRU layer.  ``prefill`` launches flash attention only: its SSD
+and RG-LRU layers run the model's default paths, which also give the final
+state the cache needs (the reference's ``block_prefill`` calls
+``ssd_scan_ref`` and ``rglru_core`` without the kernel), and decode is a
+one-step recurrence.
 
-Kinds ``ssd`` and ``rglru`` and MoE blocks are not in this slice: their
-``block_init`` raises ``NotImplementedError`` naming ROADMAP A9.
+Caches differ from the reference in two ways: ``decode_step`` writes the
+new token's k/v, SSM state, RG-LRU state and conv buffer into the cache
+tensors in place (the reference builds new arrays), so a cache passed to
+it must not be used again; and the position ``cache["pos"]`` is a Python
+int, so indexing the cache never waits for the card.
+
+MoE blocks are not in this slice: their ``block_init`` raises
+``NotImplementedError`` naming ROADMAP A9.
 """
 from __future__ import annotations
 
@@ -65,16 +75,20 @@ def _unit(tree, u: int):
 # block init / apply
 # --------------------------------------------------------------------------
 def block_init(gen: torch.Generator, kind: str, cfg: ModelConfig) -> Params:
-    if kind in ("ssd", "rglru") or cfg.num_experts:
-        what = f"{kind!r} blocks" if kind in ("ssd", "rglru") else "MoE blocks"
+    if cfg.num_experts:
         raise NotImplementedError(
-            f"{what} are not ported yet (ROADMAP A9); this slice carries the "
-            "dense 'global'/'local' attention blocks")
-    if kind not in _ATTN_KINDS:
+            "MoE blocks are not ported yet (ROADMAP A9); this slice carries "
+            "the dense attention, SSD and RG-LRU blocks")
+    p: Params = {"ln1": L.norm_init(cfg.d_model, cfg, gen.device)}
+    if kind in _ATTN_KINDS:
+        p["attn"] = L.attention_init(gen, cfg)
+    elif kind == "ssd":
+        p["ssd"] = L.ssd_init(gen, cfg)
+    elif kind == "rglru":
+        p["rglru"] = L.rglru_init(gen, cfg)
+    else:
         raise ValueError(kind)
-    p: Params = {"ln1": L.norm_init(cfg.d_model, cfg, gen.device),
-                 "attn": L.attention_init(gen, cfg)}
-    if cfg.mlp_variant != "none" and cfg.d_ff > 0:
+    if cfg.mlp_variant != "none" and cfg.d_ff > 0 and kind != "ssd":
         p["ln2"] = L.norm_init(cfg.d_model, cfg, gen.device)
         p["mlp"] = L.mlp_init(gen, cfg)
     return p
@@ -95,8 +109,13 @@ def block_apply(p: Params, x: torch.Tensor, kind: str, cfg: ModelConfig, *,
     """Full-sequence block. Returns (x, moe_aux); moe_aux is 0 (no MoE)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = L.apply_norm(p["ln1"], x, cfg)
-    h = L.attention_apply(p["attn"], h, cfg, positions=positions,
-                          window=_mixer_window(kind, cfg))
+    if kind == "ssd":
+        h = L.ssd_apply(p["ssd"], h, cfg)
+    elif kind == "rglru":
+        h = L.rglru_apply(p["rglru"], h, cfg)
+    else:
+        h = L.attention_apply(p["attn"], h, cfg, positions=positions,
+                              window=_mixer_window(kind, cfg))
     return _mlp_residual(p, x + h, cfg), aux
 
 
@@ -104,16 +123,30 @@ def block_apply(p: Params, x: torch.Tensor, kind: str, cfg: ModelConfig, *,
 def block_prefill(p: Params, x: torch.Tensor, kind: str, cfg: ModelConfig, *,
                   positions: torch.Tensor,
                   max_len: int) -> Tuple[torch.Tensor, Params]:
-    """Returns (x_out, cache) where cache layout matches block_decode."""
+    """Returns (x_out, cache) where cache layout matches block_decode.  The
+    SSD and RG-LRU blocks run their default paths (no kernel), as the
+    reference's prefill does, and keep their conv buffer from the pre-conv
+    inputs."""
     b, s, _ = x.shape
     h = L.apply_norm(p["ln1"], x, cfg)
+    if kind == "ssd":
+        h, state, xbc = L.ssd_forward(p["ssd"], h, cfg, use_kernels=False)
+        cache: Params = {"ssm": state,
+                         "conv": L.last_rows(xbc, cfg.ssm_conv_width - 1)}
+        return _mlp_residual(p, x + h, cfg), cache
+    if kind == "rglru":
+        h, h_final, xs_pre = L.rglru_forward(p["rglru"], h, cfg,
+                                             use_kernels=False)
+        cache = {"h": h_final,
+                 "conv": L.last_rows(xs_pre, cfg.conv1d_width - 1)}
+        return _mlp_residual(p, x + h, cfg), cache
     k, v = L.attention_kv(p["attn"], h, cfg, positions=positions)
     if kind == "global":
         kc = k.new_zeros((b, max_len) + k.shape[2:])
         vc = v.new_zeros((b, max_len) + v.shape[2:])
         kc[:, :s] = k
         vc[:, :s] = v
-        cache: Params = {"k": kc, "v": vc}
+        cache = {"k": kc, "v": vc}
     else:
         w = cfg.sliding_window
         # slot j holds the last prompt position p with p % w == j
@@ -136,10 +169,17 @@ def block_prefill(p: Params, x: torch.Tensor, kind: str, cfg: ModelConfig, *,
 def block_decode(p: Params, x: torch.Tensor, kind: str, cfg: ModelConfig, *,
                  cache: Params, pos: int) -> Tuple[torch.Tensor, Params]:
     """One-token step. x: (B,1,D); pos: int (position being written).  The
-    new k/v (and, for a local layer, its slot position) are written into
-    ``cache``'s tensors in place; the same dict comes back."""
+    new k/v (and, for a local layer, its slot position), or the new SSM or
+    RG-LRU state and conv buffer, are written into ``cache``'s tensors in
+    place; the same dict comes back."""
     b = x.shape[0]
     h = L.apply_norm(p["ln1"], x, cfg)
+    if kind in ("ssd", "rglru"):
+        decode = L.ssd_decode if kind == "ssd" else L.rglru_decode
+        h, new = decode(p[kind], h, cfg, cache)
+        for key, t in new.items():
+            cache[key].copy_(t)
+        return _mlp_residual(p, x + h, cfg), cache
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     k, v = L.attention_kv(p["attn"], h, cfg, positions=positions)
     if kind == "global":
@@ -174,9 +214,10 @@ def block_cache_init(kind: str, cfg: ModelConfig, batch: int, max_len: int,
                 "v": torch.zeros(shape, dtype=dtype, device=device),
                 "slot_pos": torch.full((w,), -1, dtype=torch.int32,
                                        device=device)}
-    if kind in ("ssd", "rglru"):
-        raise NotImplementedError(f"{kind!r} caches are not ported yet "
-                                  "(ROADMAP A9)")
+    if kind == "ssd":
+        return L.ssd_init_state(cfg, batch, dtype, device)
+    if kind == "rglru":
+        return L.rglru_init_state(cfg, batch, dtype, device)
     raise ValueError(kind)
 
 

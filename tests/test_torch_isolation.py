@@ -54,6 +54,8 @@ def test_importing_the_port_loads_no_jax():
             "import repro_torch.models, repro_torch.optim\n"
             "import repro_torch.kernels.comms, repro_torch.kernels._build\n"
             "import repro_torch.kernels.attention, repro_torch.configs\n"
+            "import repro_torch.kernels.ssd_scan\n"
+            "import repro_torch.kernels.rglru_scan\n"
             "import repro_torch.models.transformer, repro_torch.serving\n"
             "import repro_torch.launch.serve\n"
             "bad = sorted(m for m in sys.modules\n"

@@ -1,4 +1,6 @@
-"""The port's CUDA kernels against their plain PyTorch versions, bitwise.
+"""The port's CUDA kernels against their plain PyTorch versions: the
+codecs bitwise, attention and the SSD and RG-LRU scans to the reference's
+tolerances.
 
 Marked ``gpu``: a CUDA kernel has no CPU mode, so these tests skip without
 a card.  The file imports no JAX, so it also runs where only PyTorch is
@@ -157,3 +159,81 @@ def test_flash_attention_refuses_what_it_does_not_take(cuda):
         flat = torch.zeros(1 + q.numel(), device=cuda)
         qm = flat[1:].view(q.shape)
         kattn.flash_attention(qm, q, q)
+
+
+# SSD scan: (Bt, S, H, P, N, chunk), the reference's sweep
+# (tests/test_kernels.py) and the kernel phase's full-width shape of
+# chip_smoke.py (mamba2-130m's forward, 8 x 1024)
+SSD_CASES = [
+    (2, 32, 4, 8, 16, 8),
+    (1, 40, 2, 16, 8, 16),    # padded
+    (2, 64, 3, 8, 4, 64),     # single chunk
+    (1, 16, 1, 4, 4, 4),
+    (2, 100, 3, 64, 256, 64),  # the largest state the kernel takes
+    (8, 1024, 24, 64, 128, 64),
+]
+SSD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}   # tests/test_kernels.py:56
+
+
+def _ssd_inputs(gen, bt, s, h, p, n, dt):
+    x = torch.randn((bt, s, h, p), generator=gen, device=gen.device).to(dt)
+    dts = torch.nn.functional.softplus(
+        torch.randn((bt, s, h), generator=gen, device=gen.device))
+    A = -torch.exp(torch.randn((h,), generator=gen, device=gen.device) * 0.5)
+    B = torch.randn((bt, s, n), generator=gen, device=gen.device).to(dt)
+    C = torch.randn((bt, s, n), generator=gen, device=gen.device).to(dt)
+    return x, dts, A, B, C
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", list(SSD_TOL))
+@pytest.mark.parametrize("case", SSD_CASES, ids=str)
+def test_ssd_scan_matches_plain_version(cuda, case, dtype):
+    from repro_torch.kernels import ssd_scan as kssd
+    bt, s, h, p, n, chunk = case
+    gen = torch.Generator(device=cuda).manual_seed(s + n)
+    ins = _ssd_inputs(gen, bt, s, h, p, n, getattr(torch, dtype))
+    kssd.reset_launch_counts()
+    y = kssd.ssd_scan(*ins, chunk=chunk)
+    torch.cuda.synchronize()
+    assert kssd.launch_counts == {"ssd_scan": 1}
+    want, _ = ref.ssd_ref(*ins)
+    assert y.dtype == ins[0].dtype and y.shape == ins[0].shape
+    err = float((y.float() - want.float()).abs().max())
+    assert err / float(want.float().abs().max()) < SSD_TOL[dtype]
+
+
+@pytest.mark.gpu
+def test_ssd_scan_reads_strided_inputs(cuda):
+    """Column slices of one projection, as ssd_apply passes them."""
+    from repro_torch.kernels import ssd_scan as kssd
+    bt, s, h, p, n = 2, 130, 4, 64, 128
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    xbc = torch.randn((bt, s, h * p + 2 * n), generator=gen, device=cuda)
+    xs, B, C = torch.split(xbc, [h * p, n, n], dim=-1)
+    _, dts, A, _, _ = _ssd_inputs(gen, bt, s, h, p, n, torch.float32)
+    x = xs.reshape(bt, s, h, p)
+    y = kssd.ssd_scan(x, dts, A, B, C)
+    want = kssd.ssd_scan(x.contiguous(), dts, A, B.contiguous(),
+                         C.contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(y, want)
+
+
+RGLRU_CASES = [(2, 32, 8), (1, 50, 16), (2, 64, 4), (1, 8, 2), (3, 37, 300),
+               (8, 1024, 2560)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", RGLRU_CASES, ids=str)
+def test_rglru_scan_matches_plain_version(cuda, case):
+    from repro_torch.kernels import rglru_scan as krg
+    gen = torch.Generator(device=cuda).manual_seed(sum(case))
+    a = torch.rand(case, generator=gen, device=cuda) * 0.099 + 0.9
+    b = torch.randn(case, generator=gen, device=cuda)
+    krg.reset_launch_counts()
+    h = krg.rglru_scan(a, b)
+    torch.cuda.synchronize()
+    assert krg.launch_counts == {"rglru_scan": 1}
+    want, _ = ref.rglru_ref(a, b)
+    torch.testing.assert_close(h, want, atol=5e-5, rtol=1e-4)

@@ -1,9 +1,12 @@
 """The port's LM serving path against the JAX package's, on the CPU.
 
-Reduced qwen2-0.5b, gemma3-12b (local + global layers, window 16) and
-phi3-mini-3.8b (Hq == Hk) in float32, with the reference's params carried
-over through ``params_from_numpy`` (norm scales and biases nudged off their
-init so they are exercised).  Logits must agree to 1e-4 absolute, the
+Reduced qwen2-0.5b, gemma3-12b (local + global layers, window 16),
+phi3-mini-3.8b (Hq == Hk), mamba2-130m (SSD, chunk 8) and
+recurrentgemma-2b (RG-LRU + local attention: one unit, and with 5 layers
+one unit plus a 2-block remainder like the full model) in float32, with
+the reference's params carried over through ``params_from_numpy`` (norm
+scales, biases and the SSD's A_log, D and dt_bias nudged off their init
+so they are exercised).  Logits must agree to 1e-4 absolute, the
 reference's own limit between prefill/decode and forward
 (``tests/test_models.py``); the frameworks order the sums of a matrix
 product differently, so agreement is to a tolerance, not bitwise.
@@ -26,16 +29,26 @@ from repro.serving import DecodeEngine as JEngine  # noqa: E402
 
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.kernels import attention as kattn  # noqa: E402
+from repro_torch.kernels import rglru_scan as krg  # noqa: E402
+from repro_torch.kernels import ssd_scan as kssd  # noqa: E402
 from repro_torch.models import (build_model, params_from_numpy,  # noqa: E402
                                 params_to_numpy)
 from repro_torch.serving import DecodeEngine  # noqa: E402
 
 TOL = 1e-4
-ARCHS = ("qwen2-0.5b", "gemma3-12b", "phi3-mini-3.8b")
+# "arch:n" is the reduced arch with n layers
+ARCHS = ("qwen2-0.5b", "gemma3-12b", "phi3-mini-3.8b", "mamba2-130m",
+         "recurrentgemma-2b", "recurrentgemma-2b:5")
 B, S = 2, 24
+# params nudged off their init: norm scales and biases, the attention
+# biases, the SSD's A_log (0), D (1) and dt_bias (0) and the conv bias (0)
+NUDGED = ("scale", "bias", "bq", "bk", "bv", "A_log", "D", "dt_bias", "b")
 
 
 def _models(arch, **over):
+    arch, _, layers = arch.partition(":")
+    if layers:
+        over["num_layers"] = int(layers)
     jcfg = jreduced(jget_config(arch), **over)
     pover = dict(over)
     if "use_pallas" in pover:
@@ -51,7 +64,7 @@ def _params(jm, seed=0):
     rng = np.random.default_rng(seed)
 
     def nudge(path, a):
-        if path[-1].key in ("scale", "bias", "bq", "bk", "bv"):
+        if path[-1].key in NUDGED:
             noise = rng.normal(size=a.shape).astype(np.float32) * 0.05
             return (a.astype(np.float32) + noise).astype(a.dtype)
         return a
@@ -132,7 +145,8 @@ def test_kernel_route_matches_reference_pallas(arch):
     pp = params_from_numpy(jp, device="cpu")
     toks = _tokens(jm.cfg.vocab_size, seed=3)
     jl, _ = jm.forward(jp, jnp.asarray(toks))
-    kattn.reset_launch_counts()
+    for counter in (kattn, kssd, krg):
+        counter.reset_launch_counts()
     pl, _ = pm.forward(pp, torch.from_numpy(toks))
     assert _maxdiff(pl, jl) < TOL
     jlg, _ = jm.prefill(jp, jnp.asarray(toks[:, :20]), max_len=S)
@@ -141,7 +155,10 @@ def test_kernel_route_matches_reference_pallas(arch):
     for t in range(20, S):
         plg, cache = pm.decode_step(pp, cache, torch.from_numpy(toks[:, t]))
         assert _maxdiff(plg, pl[:, t]) < TOL
-    assert kattn.launch_counts == {"flash_attention": 0}   # CPU: no launch
+    # the CPU runs the plain versions: no launch
+    assert kattn.launch_counts == {"flash_attention": 0}
+    assert kssd.launch_counts == {"ssd_scan": 0}
+    assert krg.launch_counts == {"rglru_scan": 0}
 
 
 def test_engine_matches_reference(world):
@@ -208,6 +225,24 @@ def test_bf16_forward_matches_reference():
     assert _maxdiff(pl.float(), np.asarray(jl, np.float32)) < BF16_TOL
 
 
+@pytest.mark.parametrize("arch", ["mamba2-130m", "recurrentgemma-2b"])
+def test_bf16_ssm_forward_matches_reference(arch):
+    """The SSD and RG-LRU families in bfloat16, forward and the kernel
+    route (the plain versions on the CPU), against the reference at
+    BF16_TOL."""
+    over = dict(dtype="bfloat16", param_dtype="bfloat16")
+    toks = None
+    for kernels in (False, True):
+        jm, pm = _models(arch, use_pallas=kernels, **over)
+        jp = _params(jm)
+        pp = params_from_numpy(jp, device="cpu")
+        toks = _tokens(jm.cfg.vocab_size, seed=8) if toks is None else toks
+        jl, _ = jm.forward(jp, jnp.asarray(toks))
+        pl, _ = pm.forward(pp, torch.from_numpy(toks))
+        assert pl.dtype == torch.bfloat16
+        assert _maxdiff(pl.float(), np.asarray(jl, np.float32)) < BF16_TOL
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_params_roundtrip_bitwise(dtype):
     jm, _ = _models("gemma3-12b", dtype=dtype, param_dtype=dtype)
@@ -239,12 +274,16 @@ def test_param_tree_and_count_match_reference():
         assert pshapes == jshapes, arch
         n = sum(t.numel() for t in jax.tree.leaves(
             pp, is_leaf=lambda x: isinstance(x, torch.Tensor)))
-        assert n == pm.cfg.param_count(), arch
+        # the reference's analytic count leaves out each SSD layer's conv
+        # bias (configs/base.py counts the conv's weights only); the port's
+        # config is a copy and keeps that
+        cfg = pm.cfg
+        conv_bias = sum(cfg.ssm_expand * cfg.d_model + 2 * cfg.ssm_state
+                        for kind in cfg.layer_kinds if kind == "ssd")
+        assert n == cfg.param_count() + conv_bias, arch
 
 
 @pytest.mark.parametrize("arch,what", [
-    ("mamba2-130m", "'ssd' blocks"),
-    ("recurrentgemma-2b", "'rglru' blocks"),
     ("mixtral-8x22b", "MoE blocks"),
     ("olmoe-1b-7b", "MoE blocks"),
 ])
@@ -268,8 +307,10 @@ def test_serve_launcher_on_cpu(capsys):
     with pytest.raises(NotImplementedError, match="A10"):
         main(["--arch", "qwen2-0.5b", "--reduced", "--ckpt-dir", "x"],
              device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
-        main(["--reduced"], device="cpu")       # the default mamba2-130m
+    res = main(["--reduced", "--batch", "2", "--gen", "3"],
+               device="cpu")                   # the default mamba2-130m
+    assert res.tokens.shape == (2, 3) and np.isfinite(res.logprobs).all()
+    assert "arch=mamba2-130m-smoke" in capsys.readouterr().out
 
 
 def test_engine_refuses_params_elsewhere():
