@@ -7,7 +7,7 @@ Needs one CUDA card and the CUDA toolkit (``nvcc``); imports nothing of JAX
 or of the JAX package.  It
 
 1. prints the card's name and power limit (``nvidia-smi``);
-2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` into
+2. builds the six CUDA sources from ``src/repro_torch/kernels/csrc`` into
    ``build/kernels/``, one ``nvcc`` per source, all started together, and
    prints what ``ptxas`` reports;
 3. kernel phase: holds every kernel bitwise against its plain PyTorch
@@ -34,6 +34,33 @@ or of the JAX package.  It
    run;
    the int8 runs must also reach accuracy >= 0.9 (the sign codec keeps
    this model at chance by design, so its runs have no accuracy floor);
+4a. top-k kernel phase: holds ``topk_decode_reduce`` against its plain
+   version (``topk_reduce_ref``) on the card at TOPK_CASES: bit for bit,
+   and equal to itself on a second call, where each member's indices are
+   distinct (the quickstart's syncs at rates 0.25 and 1/16, the smallest
+   payload, a zeroed member, the timing shape); to 1e-6 where they repeat;
+   times kernel, plain version and one ``index_add_`` of all entries (the
+   library yardstick, which the port never calls) at TOPK_TIMED beside
+   the bound;
+4b. sim top-k phase: the quickstart world with ``Comms("topk",
+   rate=0.25)``, wire path and legacy roundtrip, on the card and the CPU:
+   the JAX package's wire bytes, the CPU run's loss within LOSS_RTOL, no
+   kernel launch (sim's top-k reduce is the dense group mean);
+4c. mesh phase: ``launch(mesh_rank, 8, backend="gloo", device="cuda")``,
+   eight processes on the one card, each the quickstart world through
+   ``MeshExecutor`` with its launch counts from zero for each run:
+   ``exact=True`` with comms off, int8, sign and top-k must equal the
+   card's sim bit for bit (params, residuals, loss); production top-k on
+   the two-level and the three-level ``((2, 2, 2), (8, 4, 2))`` worlds
+   must launch ``topk_decode_reduce`` exactly once per sync on every rank
+   (24 and 48) and stay within MESH_ATOL of the sim's params and
+   LOSS_RTOL of its loss; production int8 must launch
+   ``int8_scale_quantize`` on every rank and stay within LOSS_RTOL (its
+   params gap is printed, see ``_mesh_runs``); on shared inputs in every
+   rank, one int8 sync through the production lowering must equal the
+   exact one bit for bit, and a top-k sync to 1e-6; prints where a
+   worker's update alone first differs from the sim's batched one, and
+   wall seconds and steps/s of mesh and sim;
 5. attention kernel phase: holds ``flash_attention`` against its plain
    version (``attention_ref``) on the card at ATTN_CASES, to the
    reference's tolerances (2e-5 in float32, 2e-2 in bfloat16), and times
@@ -79,7 +106,8 @@ or of the JAX package.  It
    no SSM kernel.  Float32 tokens must equal the plain versions' run's,
    bfloat16 scores agree to SCORE_ATOL; prints prefill and decode tokens/s;
 10. prints one ``{"ssm": ...}`` JSON line with the SSM throughputs, one
-   ``{"kernels": [...]}`` JSON line, then the result line
+   ``{"topk_sim": ..., "mesh": ...}`` line, one ``{"kernels": [...]}``
+   JSON line (all nine kernels), then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Any failed phase exits non-zero before the result line.
@@ -105,7 +133,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SOURCES = ("int8_codec", "sign_codec", "flash_attention", "ssd_scan",
-           "rglru_scan")
+           "rglru_scan", "topk_reduce")
 BLOCK = 256
 SHAPES = ((8, 2120), (8, 2**24 + 77))
 SIGN_BLOCK = 1024
@@ -181,6 +209,27 @@ SSM_BATCH, SSM_SEQ, SSM_GEN = 8, 1024, 32
 # to bf16; the CE is held to 2e-2 nats.
 CE_RTOL = 1e-4
 CE_ATOL_BF16 = 2e-2
+# the top-k slice.  Cases (M, K, size, kind) of topk_decode_reduce: the
+# quickstart's global and local syncs at rate 0.25 and its global sync at
+# rate 1/16, the smallest payload, a masked (zeroed) member, and the timing
+# shape, rate 1/16 of the codec timing length (1,048,581 = round(
+# (2**24 + 77) / 16)), each with distinct indices in every member (bitwise);
+# then the reference's repeated-index cases (tests/test_comms.py)
+TOPK_TIMED = (8, 1048581, 2**24 + 77)
+TOPK_CASES = ((8, 530, 2120, "distinct"), (4, 530, 2120, "distinct"),
+              (8, 132, 2120, "distinct"), (1, 1, 7, "distinct"),
+              (8, 530, 2120, "masked"), (*TOPK_TIMED, "distinct"),
+              (16, 15, 244, "repeated"), (8, 4, 100, "repeated"))
+TOPK_REPEAT_TOL = 1e-6           # tests/test_comms.py:168-172
+TOPK_RATE = 0.25
+TOPK_WIRE_BYTES = 864960         # the JAX package's run, T=96, rate 0.25
+TOPK_TPU_KERNEL = "src/repro/kernels/comms.py:156"
+# the mesh phase: one gloo process per worker, all on the one card
+MESH_WORKERS = 8
+MESH_TIMEOUT = 400.0
+MESH_ATOL = 1e-3                 # tests/test_differential.py:247
+# exact mode against sim where the two are not bit for bit (ROADMAP C)
+EXACT_FALLBACK_RTOL = 1e-6
 TPU_KERNEL = "src/repro/kernels/comms.py"
 SOURCE = "src/repro_torch/kernels/csrc/{}.cu"
 
@@ -359,12 +408,13 @@ def sign_kernel_phase(torch, kern, ref):
     return recs
 
 
-def quickstart(device: str, comms, spec=None, opt=None):
+def quickstart(device: str, comms, spec=None, opt=None, executor=None):
     """The quickstart world through HSGD.run_rounds, on the two-level
     hierarchy or ``spec`` (group sizes, periods), with sgd(0.08) or
-    ``opt``; returns the final global loss and accuracy, the wire bytes,
-    the launch counts of the run, its seconds and the final worker params
-    (on the CPU)."""
+    ``opt``, on the sim executor or ``executor``; returns the final global
+    loss and accuracy, the wire bytes, the launch counts of the run, its
+    seconds and the final params and error-feedback residuals of every
+    worker (on the CPU; a mesh rank gathers them)."""
     import torch
     from repro_torch.core import (EngineConfig, HSGD, HierarchySpec,
                                   make_topology)
@@ -382,7 +432,7 @@ def quickstart(device: str, comms, spec=None, opt=None):
     topo = make_topology("two_level", n=8, N=2, G=16, I=4) if spec is None \
         else make_topology(HierarchySpec(*spec))
     engine = HSGD(model.loss, sgd(0.08) if opt is None else opt, topo,
-                  EngineConfig(comms=comms))
+                  EngineConfig(comms=comms, executor=executor))
     state = engine.init(torch.Generator().manual_seed(0), model.init,
                         device=device)
     gb = {k: torch.as_tensor(v, device=device)
@@ -404,10 +454,14 @@ def quickstart(device: str, comms, spec=None, opt=None):
     counts = dict(kern.launch_counts)
     last = history[-1]
     from repro_torch.tree import tree_leaves
+    gather = engine.executor.gather
     return {"loss": last["loss"], "acc": last["acc"],
             "wire_bytes": sum(r.get("wire_bytes", 0) for r in history),
             "launches": counts, "seconds": seconds,
-            "params": [p.cpu() for p in tree_leaves(state.params)]}
+            "steps_per_s": 96 / seconds,
+            "params": [p.cpu() for p in tree_leaves(gather(state.params))],
+            "comms": None if state.comms is None else
+            [r.cpu() for r in tree_leaves(gather(state.comms))]}
 
 
 @contextlib.contextmanager
@@ -425,6 +479,8 @@ def plain_versions(kern, ref, kattn=None, kssd=None, krg=None):
         (kern, "sign_pack"): lambda x, block: ref.sign_pack_ref(x, block),
         (kern, "sign_unpack"): lambda b, s, size, block: ref.sign_unpack_ref(
             b, s, size, block),
+        (kern, "topk_decode_reduce"): lambda v, i, size, block=256:
+            ref.topk_reduce_ref(v, i, size),
     }
     if kattn is not None:
         plain[(kattn, "flash_attention")] = \
@@ -515,6 +571,333 @@ def main_path_phase(torch, kern, ref):
               f"{label}: loss {gpu['loss']} on cuda vs {cpu['loss']} on "
               f"cpu, relative difference {rel} > {LOSS_RTOL}")
     return launches
+
+
+def topk_kernel_phase(torch, kern, ref):
+    """``topk_decode_reduce`` against ``topk_reduce_ref`` on the card at
+    TOPK_CASES: bit for bit, and the same on a second call, where each
+    member's indices are distinct; to TOPK_REPEAT_TOL where they repeat.
+    Times kernel, plain version and the ``index_add_`` yardstick at
+    TOPK_TIMED.  Returns the kernel's record."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rec = {"max_abs_err": 0.0, "max_abs_err_repeated": 0.0}
+    for m, k, size, kind in TOPK_CASES:
+        vals = torch.randn((m, k), generator=gen, device="cuda")
+        if kind == "repeated":
+            idx = torch.randint(0, size, (m, k), generator=gen,
+                                device="cuda", dtype=torch.int32)
+        else:
+            idx = torch.stack([
+                torch.randperm(size, generator=gen, device="cuda")[:k]
+                for _ in range(m)]).to(torch.int32)
+        if kind == "masked":
+            vals[m // 2] = 0.0                       # a masked-out member
+        out = kern.topk_decode_reduce(vals, idx, size=size)
+        again = kern.topk_decode_reduce(vals, idx, size=size)
+        want = ref.topk_reduce_ref(vals, idx, size)
+        torch.cuda.synchronize()
+        at = f"(M, K, size) = {(m, k, size)} {kind}"
+        err = float((out - want).abs().max())
+        if kind == "repeated":
+            check(torch.allclose(out, want, atol=TOPK_REPEAT_TOL,
+                                 rtol=TOPK_REPEAT_TOL),
+                  f"topk_decode_reduce differs from its plain version by "
+                  f"{err} at {at}")
+            rec["max_abs_err_repeated"] = max(rec["max_abs_err_repeated"],
+                                              err)
+        else:
+            check(torch.equal(out, want) and torch.equal(again, out),
+                  f"topk_decode_reduce differs from its plain version (or "
+                  f"from itself) at {at}: max |diff| {err}")
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        print(f"topk_decode_reduce {at}: max |kernel - plain| {err!r}",
+              flush=True)
+        if (m, k, size) == TOPK_TIMED:
+            nbytes, nops = m * k * 8 + size * 4, m * k
+            b_ms, b_by = bound_ms(nbytes, nops)
+            flat_i, flat_v = idx.reshape(-1), vals.reshape(-1)
+            rec.update(
+                shape=[m, k, size], bytes=nbytes, bound_ms=b_ms, bound_by=b_by,
+                ms=time_ms(torch, lambda: kern.topk_decode_reduce(
+                    vals, idx, size=size), 1),
+                plain_ms=time_ms(torch, lambda: ref.topk_reduce_ref(
+                    vals, idx, size), 1),
+                library_ms=time_ms(torch, lambda: torch.zeros(
+                    size, device="cuda").index_add_(0, flat_i, flat_v), 1))
+            print(f"topk_decode_reduce {at}: kernel {rec['ms']:.5f} ms, "
+                  f"plain {rec['plain_ms']:.5f} ms, index_add_ "
+                  f"{rec['library_ms']:.5f} ms, bound {b_ms:.5f} ms "
+                  f"({b_by})", flush=True)
+        del vals, idx, out, again, want
+        torch.cuda.empty_cache()
+    return rec
+
+
+def topk_sim_phase(torch):
+    """The quickstart world with ``Comms("topk", rate=TOPK_RATE)`` on the
+    sim executor, wire path and legacy roundtrip, on the card and on the
+    CPU: the JAX package's wire bytes, the CPU run's loss within LOSS_RTOL.
+    Sim's top-k reduce is the dense group mean: no kernel launches."""
+    from repro_torch.comms import Comms
+    out = {}
+    for label, wire in (("topk sim", True), ("topk sim legacy", False)):
+        def run(device):
+            return quickstart(device, Comms("topk", rate=TOPK_RATE,
+                                            wire_reduce=wire))
+        gpu, cpu = run("cuda"), run("cpu")
+        rel = abs(gpu["loss"] - cpu["loss"]) / abs(cpu["loss"])
+        print(f"{label}: cuda loss {gpu['loss']!r} acc {gpu['acc']!r} "
+              f"wire_bytes {gpu['wire_bytes']} {gpu['seconds']:.3f} s "
+              f"({gpu['steps_per_s']:.1f} steps/s) | cpu loss "
+              f"{cpu['loss']!r} acc {cpu['acc']!r} | relative difference "
+              f"{rel!r}", flush=True)
+        check(math.isfinite(gpu["loss"]), f"{label}: loss is not finite")
+        check(gpu["wire_bytes"] == cpu["wire_bytes"] == TOPK_WIRE_BYTES,
+              f"{label}: wire bytes {gpu['wire_bytes']} on cuda, "
+              f"{cpu['wire_bytes']} on cpu, {TOPK_WIRE_BYTES} in the JAX "
+              "package's run")
+        check(rel <= LOSS_RTOL, f"{label}: loss {gpu['loss']} on cuda vs "
+              f"{cpu['loss']} on cpu, relative difference {rel} > "
+              f"{LOSS_RTOL}")
+        check(not any(gpu["launches"].values()),
+              f"{label}: sim launched {gpu['launches']}")
+        out[label] = {k: gpu[k] for k in ("loss", "acc", "seconds",
+                                          "steps_per_s", "wire_bytes")}
+    return out
+
+
+# The mesh phase's runs: (label, comms, spec, exact, the kernels every rank
+# must launch; topk_decode_reduce exactly once per sync).  comms is a
+# factory because a Comms holds bucket plans.  Production runs hold their
+# params to MESH_ATOL of the sim on the card, but for int8: each rank's
+# update runs over 1 row where the sim's runs over 8, cuBLAS computes the
+# first product of the two in the last bit differently (the phase prints
+# where), and int8 rounding turns that into whole quanta (PERF.md).
+# The int8 lowering itself is held bit for bit on shared inputs
+# (wire_lowering_check), and the run's loss to LOSS_RTOL.
+def _mesh_runs():
+    from repro_torch.comms import Comms
+
+    def topk():
+        return Comms("topk", rate=TOPK_RATE)
+    three_level = ((2, 2, 2), (8, 4, 2))
+    return (
+        ("exact none", lambda: None, None, True, ()),
+        ("exact int8", lambda: "int8", None, True, ("int8_scale_quantize",)),
+        ("exact sign", lambda: "sign", None, True, ("sign_pack",)),
+        ("exact topk", topk, None, True, ()),
+        ("topk", topk, None, False, ("topk_decode_reduce",)),
+        ("topk three_level", topk, three_level, False,
+         ("topk_decode_reduce",)),
+        ("int8", lambda: "int8", None, False, ("int8_scale_quantize",)),
+    )
+
+
+def wire_lowering_check(device: str):
+    """Both lowerings of one sync on the same inputs, in every rank: the
+    int8 and top-k codecs' reduce through MeshWireOps (production) and
+    through ExactWireOps (the sim's arithmetic on the gathered block), at
+    every level of the two-level world, unmasked and masked, on a seeded
+    (1, 2120) payload per rank.  Returns {case: max |diff|} (int8 must be
+    0: its collective sums int32 and takes a max; top-k sums its members in
+    another order than the sim's mean)."""
+    import torch
+    from repro_torch.comms.codecs import Int8Compressor, TopKCompressor
+    from repro_torch.comms.reduce import ExactWireOps, MeshWireOps
+    from repro_torch.launch.mesh import make_hsgd_mesh
+    mesh = make_hsgd_mesh((2, 4))
+    rank = mesh.rank
+    gen = torch.Generator().manual_seed(100 + rank)
+    x = torch.randn((1, 2120), generator=gen).to(device)
+    res = (torch.randn((1, 2120), generator=gen) * 0.1).to(device)
+    out = {}
+    for level in (1, 2):
+        for mask in (None, torch.tensor([1, 0, 1, 1, 0, 1, 1, 1],
+                                        dtype=torch.bool, device=device)):
+            prod = MeshWireOps(mesh.axes(mesh.axis_names[level - 1:]), mask,
+                               rank)
+            exact = ExactWireOps(mesh.world, rank, (2, 4), level, mask)
+            tag = f"level {level}{' masked' if mask is not None else ''}"
+            a = Int8Compressor().reduce(x, prod)
+            b = Int8Compressor().reduce(x, exact)
+            out[f"int8 {tag}"] = float((a - b).abs().max())
+            (a, ra), (b, rb) = (TopKCompressor(TOPK_RATE).reduce(x, ops, res)
+                                for ops in (prod, exact))
+            out[f"topk {tag}"] = float((a - b).abs().max())
+            out[f"topk residual {tag}"] = float((ra - rb).abs().max())
+    return out
+
+
+def _digest(run) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for t in run["params"] + (run["comms"] or []):
+        h.update(t.numpy().tobytes())
+    return h.hexdigest()
+
+
+def mesh_rank(rank: int, device: str):
+    """One rank of the mesh phase: every run of ``_mesh_runs()`` through
+    ``MeshExecutor``, launch counts from zero for each.  Rank 0 returns its
+    runs and every rank's launches, seconds and state digests."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import MeshExecutor
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out, summary = {}, {}
+    for label, make, spec, exact, _ in _mesh_runs():
+        run = quickstart(device, make(), spec,
+                         executor=MeshExecutor(exact=exact))
+        out[label] = run
+        summary[label] = (run["launches"], run["seconds"], _digest(run))
+    summary["lowering"] = wire_lowering_check(device)
+    everyone = [None] * dist.get_world_size()
+    dist.all_gather_object(everyone, summary)
+    return {"runs": out, "ranks": everyone}
+
+
+def batched_first_difference(torch, device: str, repeat: bool):
+    """Where a worker's update computed alone first differs from the sim's
+    (vmap over all 8 workers) on ``device``, for the quickstart model's
+    first step: the name of the first stage whose rows differ, or None.
+    Alone is vmap over its 1 row (the production mesh) or, with
+    ``repeat``, over its row repeated 8 times (the exact mesh)."""
+    from repro_torch.data import (FederatedDataset, label_shard_partition,
+                                  make_classification)
+    from repro_torch.models import SimpleConfig, SimpleModel
+    x, y = make_classification(seed=0, num_classes=8, dim=24, per_class=80)
+    ds = FederatedDataset(x, y, label_shard_partition(
+        y, [[j] for j in range(8)], n_workers=8))
+    model = SimpleModel(SimpleConfig(kind="mlp", input_dim=24, hidden=32,
+                                     num_classes=8))
+    p0 = model.init(torch.Generator().manual_seed(0), device=device)
+    params = {k: {n: v[None].expand((8,) + tuple(v.shape)).contiguous()
+                  for n, v in d.items()} for k, d in p0.items()}
+    batch = {k: torch.as_tensor(v, device=device)
+             for k, v in ds.batch(0, 10).items()}
+    vmap = torch.func.vmap
+    grad = torch.func.grad(lambda p, b: model.loss(p, b)[0])
+    stages = (
+        ("h1 = x @ W1 (batched matmul)",
+         lambda p, b: b["x"] @ p["h1"]["w"]),
+        ("logits", lambda p, b: model.logits(p, b["x"])),
+        ("loss", lambda p, b: model.loss(p, b)[0]),
+        ("grad of W1", lambda p, b: grad(p, b)["h1"]["w"]),
+        ("grad of W2", lambda p, b: grad(p, b)["h2"]["w"]),
+        ("grad of Wout", lambda p, b: grad(p, b)["out"]["w"]),
+    )
+    def alone(v, r):
+        v = v[r:r + 1]
+        return v.repeat((8,) + (1,) * (v.ndim - 1)) if repeat else v
+
+    for name, fn in stages:
+        every = vmap(fn)(params, batch)
+        for r in range(8):
+            row = vmap(fn)(
+                {k: {n: alone(v, r) for n, v in d.items()}
+                 for k, d in params.items()},
+                {k: alone(v, r) for k, v in batch.items()})
+            if not torch.equal(every[r:r + 1], row[:1]):
+                return f"{name}, worker {r}"
+    return None
+
+
+def mesh_phase(torch, device: str = "cuda"):
+    """``MeshExecutor`` in MESH_WORKERS gloo processes on one card (every
+    collective crosses the host), against the sim on the same card:
+    ``exact=True`` bit for bit (params, residuals, loss), the production
+    lowering within MESH_ATOL of the params and LOSS_RTOL of the loss; the
+    kernels each run must launch, on every rank, topk_decode_reduce once
+    per sync; every rank's gathered state the same.  Returns the record."""
+    from repro_torch.core import HierarchySpec, make_topology
+    from repro_torch.launch.mesh import launch
+    t0 = time.perf_counter()
+    res = launch(mesh_rank, MESH_WORKERS, backend="gloo", device=device,
+                 args=(device,), timeout=MESH_TIMEOUT)
+    wall = time.perf_counter() - t0
+    print(f"mesh: {MESH_WORKERS} gloo ranks on one card, launch and every "
+          f"run in {wall:.1f} s", flush=True)
+    out = {"wall_s": wall, "runs": {}, "exact_bitwise": True,
+           "first_difference_one_row": batched_first_difference(
+               torch, device, repeat=False),
+           "first_difference_repeated_row": batched_first_difference(
+               torch, device, repeat=True)}
+    print(f"mesh: a worker's update alone vs the sim's batch of 8 first "
+          f"differs at: {out['first_difference_one_row']} (one row, the "
+          f"production mesh); {out['first_difference_repeated_row']} (its "
+          "row repeated 8 times, the exact mesh)", flush=True)
+    lowering = {case: max(r["lowering"][case] for r in res["ranks"])
+                for case in res["ranks"][0]["lowering"]}
+    print(f"mesh: production vs exact lowering of one sync on shared "
+          f"inputs, max |diff| over the ranks: {lowering}", flush=True)
+    for case, diff in lowering.items():
+        check(diff == 0.0 if case.startswith(("int8", "topk residual"))
+              else diff <= EXACT_FALLBACK_RTOL,
+              f"mesh lowering {case}: production differs from exact by "
+              f"{diff}")
+    out["lowering"] = lowering
+    for label, make, spec, exact, kernels in _mesh_runs():
+        mesh = res["runs"][label]
+        ranks = [r[label] for r in res["ranks"]]
+        sim = quickstart(device, make(), spec)
+        topo = make_topology("two_level", n=8, N=2, G=16, I=4) \
+            if spec is None else make_topology(HierarchySpec(*spec))
+        syncs = sum(ev is not None for ev in topo.schedule(96))
+        diff = max(float((a - b).abs().max())
+                   for a, b in zip(mesh["params"], sim["params"]))
+        scale = max(float(b.abs().max()) for b in sim["params"])
+        rel = abs(mesh["loss"] - sim["loss"]) / abs(sim["loss"])
+        print(f"mesh {label}: loss {mesh['loss']!r} acc {mesh['acc']!r} "
+              f"{mesh['seconds']:.3f} s ({mesh['steps_per_s']:.1f} "
+              f"steps/s, rank 0) | sim on the card loss {sim['loss']!r} "
+              f"{sim['seconds']:.3f} s ({sim['steps_per_s']:.1f} steps/s) "
+              f"| max |params diff| {diff!r} | launches per rank "
+              f"{[{k: v for k, v in r[0].items() if v} for r in ranks]}",
+              flush=True)
+        check(len({r[2] for r in ranks}) == 1,
+              f"mesh {label}: the ranks gathered different states")
+        check(mesh["wire_bytes"] == sim["wire_bytes"],
+              f"mesh {label}: wire bytes {mesh['wire_bytes']} vs sim "
+              f"{sim['wire_bytes']}")
+        for name in kernels:
+            per_rank = [r[0][name] for r in ranks]
+            want = syncs if name == "topk_decode_reduce" else None
+            check(all(n > 0 for n in per_rank) and
+                  (want is None or per_rank == [want] * MESH_WORKERS),
+                  f"mesh {label}: {name} launched {per_rank} times on the "
+                  f"ranks (want {want or 'at least once'} on each)")
+        if "topk_decode_reduce" not in kernels:
+            check(all(r[0]["topk_decode_reduce"] == 0 for r in ranks),
+                  f"mesh {label}: topk_decode_reduce launched")
+        rec = {"loss": mesh["loss"], "acc": mesh["acc"],
+               "seconds": mesh["seconds"], "steps_per_s":
+               mesh["steps_per_s"], "sim_seconds": sim["seconds"],
+               "sim_steps_per_s": sim["steps_per_s"],
+               "max_abs_params_diff": diff,
+               "launches_per_rank": {k: ranks[0][0][k] for k in kernels}}
+        if exact:
+            same = all(torch.equal(a, b)
+                       for a, b in zip(mesh["params"], sim["params"]))
+            if mesh["comms"] is not None:
+                same = same and all(torch.equal(a, b) for a, b in zip(
+                    mesh["comms"], sim["comms"]))
+            same = same and mesh["loss"] == sim["loss"]
+            rec["bitwise"] = same
+            if not same:
+                out["exact_bitwise"] = False
+                print(f"mesh {label}: NOT bit for bit the sim", flush=True)
+                check(diff <= EXACT_FALLBACK_RTOL * scale,
+                      f"mesh {label}: exact mode differs from sim by {diff} "
+                      f"> {EXACT_FALLBACK_RTOL} x {scale}")
+        else:
+            if label != "int8":
+                check(diff < MESH_ATOL, f"mesh {label}: params differ from "
+                      f"sim by {diff} >= {MESH_ATOL}")
+            check(rel <= LOSS_RTOL, f"mesh {label}: loss {mesh['loss']} vs "
+                  f"sim {sim['loss']}, relative difference {rel}")
+        out["runs"][label] = rec
+    return out
 
 
 def visible_pairs(sq: int, sk: int, causal: bool, window) -> int:
@@ -1136,8 +1519,11 @@ def main() -> int:
                 print(f"{name} {shape}: kernel {t['ms']:.5f} ms, plain "
                       f"{t['plain_ms']:.5f} ms, bound {t['bound_ms']:.5f} ms",
                       flush=True)
-        attn = attention_kernel_phase(torch, kattn, ref)
         launches = main_path_phase(torch, kern, ref)
+        topk = topk_kernel_phase(torch, kern, ref)
+        topk_sim = topk_sim_phase(torch)
+        mesh = mesh_phase(torch)
+        attn = attention_kernel_phase(torch, kattn, ref)
         served = serving_phase(torch, kern, kattn, ref)
         ssm = ssm_kernel_phase(torch, kssd, krg, ref)
         ssm_fwd = ssm_forward_phase(torch, kern, kattn, kssd, krg, ref)
@@ -1166,6 +1552,22 @@ def main() -> int:
             "block": SIGN_BLOCK if source == "sign_codec" else BLOCK,
             "main_path_shape": {"shape": list(SHAPES[0]), **small},
         })
+    topk_runs = {f"mesh {label} (each of {MESH_WORKERS} ranks)":
+                 rec["launches_per_rank"]["topk_decode_reduce"]
+                 for label, rec in mesh["runs"].items()
+                 if "topk_decode_reduce" in rec["launches_per_rank"]}
+    kernels.append({
+        "name": "topk_decode_reduce", "route": "cuda",
+        "source": SOURCE.format("topk_reduce"), "replaces": TOPK_TPU_KERNEL,
+        "launches": MESH_WORKERS * sum(topk_runs.values()),
+        "launches_by_run": topk_runs,
+        "max_abs_err": topk["max_abs_err"],
+        "max_abs_err_repeated": topk["max_abs_err_repeated"],
+        "ms": topk["ms"], "plain_ms": topk["plain_ms"],
+        "bound_ms": topk["bound_ms"], "bound_by": topk["bound_by"],
+        "library_ms": topk["library_ms"], "library": "index_add_",
+        "shape": topk["shape"],
+    })
     a, b = attn["timed"]
 
     # launches of each LM kernel, by run: serving, then the SSM loss and
@@ -1205,6 +1607,7 @@ def main() -> int:
         })
     print(json.dumps({"ssm": {"loss": ssm_fwd["throughput"],
                               "serving": ssm_served["throughput"]}}))
+    print(json.dumps({"topk_sim": topk_sim, "mesh": mesh}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

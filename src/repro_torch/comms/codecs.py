@@ -6,13 +6,15 @@ independently of the aggregation rule.  Codecs see payloads as
 ``(rows, ...)`` tensors with a leading worker axis; trailing dims are
 flattened internally.  The int8 and sign codecs run the CUDA kernels of
 :mod:`repro_torch.kernels.comms` on the card (their plain versions on the
-CPU).  The registry holds identity, int8 and sign; top-k comes with ROADMAP
-B6.
+CPU).  ``topk`` is a sparsifier with error feedback: what compression drops
+at one sync is carried in a per-worker residual (``HSGDState.comms``) and
+re-injected at the next; its compressed collective runs the fused
+decode-reduce kernel under the mesh executor.
 """
 from __future__ import annotations
 
 import abc
-from typing import Dict, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -29,11 +31,14 @@ class Compressor(abc.ABC):
 
     ``wire_reduce`` marks a codec whose :meth:`reduce` implements the
     compressed collective; ``layout_free`` marks one whose reduce does not
-    depend on the payload layout (bucketization can be skipped).  No
-    ported codec carries an error-feedback residual: that comes with top-k
-    (ROADMAP B6)."""
+    depend on the payload layout (bucketization can be skipped);
+    ``stateful`` marks one that carries a per-worker error-feedback
+    residual.  Residual rule: :meth:`roundtrip` and :meth:`reduce` return
+    the payload alone when no residual is passed, and the pair (payload,
+    new residual) when one is."""
 
     name = "compressor"
+    stateful = False
     wire_reduce = False
     layout_free = False
 
@@ -50,13 +55,24 @@ class Compressor(abc.ABC):
     def wire_spec(self, length: int, dtype) -> Tuple[WireArray, ...]:
         """Static wire arrays for ONE worker's ``length``-element payload."""
 
-    def roundtrip(self, x: torch.Tensor) -> torch.Tensor:
-        """What the receiver reconstructs from each worker's payload."""
-        return self.decode(self.encode(x), x).to(x.dtype)
+    def roundtrip(self, x: torch.Tensor,
+                  residual: Optional[torch.Tensor] = None):
+        """What the receiver reconstructs from each worker's payload.  With
+        a ``residual`` (error feedback), the residual is added before the
+        encode and the pair (decoded, ``u - decoded``) comes back, ``u``
+        being what was encoded; a stateless codec returns None for it."""
+        if residual is None:
+            return self.decode(self.encode(x), x).to(x.dtype)
+        u = x.to(residual.dtype) + residual
+        sent = self.decode(self.encode(u), u)
+        if not self.stateful:
+            return sent.to(x.dtype), None
+        return sent.to(x.dtype), u - sent.to(u.dtype)
 
-    def reduce(self, x: torch.Tensor, ops) -> torch.Tensor:
+    def reduce(self, x: torch.Tensor, ops):
         """The compressed collective through ``ops`` (a WireOps): the
-        group aggregate of ``x``, broadcast over the member rows."""
+        group aggregate of ``x``, broadcast over the member rows.  A
+        stateful codec also takes a ``residual`` (the residual rule)."""
         raise NotImplementedError(
             f"{type(self).__name__} has no compressed-collective form")
 
@@ -230,6 +246,72 @@ class SignCompressor(Compressor):
         return f"SignCompressor(block={self.block})"
 
 
+class TopKCompressor(Compressor):
+    """Top-k magnitude sparsification with error feedback (Deep Gradient
+    Compression): each sync ships the k = ``rate * length`` largest-|x|
+    entries as (value, index) pairs; what is dropped stays in the
+    per-worker residual and is re-injected at the next sync."""
+
+    name = "topk"
+    stateful = True
+    wire_reduce = True
+
+    def __init__(self, rate: float = 1 / 16):
+        if not 0 < rate <= 1:
+            raise ValueError(f"TopKCompressor: rate must be in (0, 1], "
+                             f"got {rate}")
+        self.rate = float(rate)
+
+    def _k(self, length: int) -> int:
+        # Python's round() rounds half to even, as the reference's does:
+        # round(132.5) is 132
+        return max(1, min(length, int(round(self.rate * length))))
+
+    def encode(self, x):
+        """Tie rule: ``jax.lax.top_k`` returns the entries by |x|
+        descending and, among equal ones, the lower index first;
+        ``torch.topk`` promises no order among ties, so the entries are
+        chosen by a stable descending sort of |x|."""
+        x2 = _rows(x).to(torch.float32)
+        k = self._k(x2.shape[1])
+        idx = torch.sort(x2.abs(), dim=1, descending=True,
+                         stable=True).indices[:, :k]
+        vals = torch.take_along_dim(x2, idx, dim=1)
+        return {"values": vals, "indices": idx.to(torch.int32)}
+
+    def decode(self, wire, like):
+        rows = like.shape[0]
+        out = torch.zeros((rows, _rows(like).shape[1]), dtype=torch.float32,
+                          device=wire["values"].device)
+        out.scatter_(1, wire["indices"].long(), wire["values"])
+        return out.reshape(like.shape)
+
+    def reduce(self, x, ops, residual=None):
+        """The top-k compressed collective.  Error feedback and the sparse
+        encode stay local and replicate :meth:`roundtrip`'s casts, so the
+        residuals are the legacy path's bit for bit; the (values, indices)
+        payload then goes to ``ops.sparse_mean``: the dense group mean on
+        sim, an all-gather and the fused decode-reduce kernel on the
+        mesh."""
+        u = x if residual is None else x.to(residual.dtype) + residual
+        wire = self.encode(u)
+        sent = self.decode(wire, u)
+        out = ops.sparse_mean(wire["values"], wire["indices"],
+                              sent.to(x.dtype))
+        out = out.to(x.dtype).reshape(x.shape)
+        if residual is None:
+            return out
+        return out, u - sent.to(u.dtype)
+
+    def wire_spec(self, length, dtype):
+        k = self._k(length)
+        return (WireArray("values", (k,), "float32"),
+                WireArray("indices", (k,), "int32"))
+
+    def __repr__(self):
+        return f"TopKCompressor(rate={self.rate:g})"
+
+
 COMPRESSORS = {
     "identity": IdentityCompressor,
     "none": IdentityCompressor,
@@ -237,9 +319,8 @@ COMPRESSORS = {
     "q8": Int8Compressor,
     "sign": SignCompressor,
     "1bit": SignCompressor,
+    "topk": TopKCompressor,
 }
-# registered in the JAX package, not ported yet: name -> ROADMAP item
-_NOT_PORTED = {"topk": "B6"}
 
 CompressorLike = Union[str, Compressor, None]
 
@@ -257,10 +338,6 @@ def make_compressor(spec: CompressorLike = None, **kwargs) -> Compressor:
     if spec is None:
         return IdentityCompressor(**kwargs)
     name = spec.lower()
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"compressor {spec!r} is not ported yet (ROADMAP "
-            f"{_NOT_PORTED[name]}); the port has {sorted(COMPRESSORS)}")
     if name not in COMPRESSORS:
         raise KeyError(f"unknown compressor {spec!r}; "
                        f"known: {sorted(COMPRESSORS)}")

@@ -1,6 +1,5 @@
 """WireOps: the reduction surface a codec's compressed collective targets
-(PyTorch counterpart of ``repro.comms.reduce``; this slice ports the sim
-form only — the mesh forms come with ROADMAP A8).
+(PyTorch counterpart of ``repro.comms.reduce``).
 
 * :meth:`SimWireOps.mean` — the aggregator's f32 group mean;
 * :meth:`SimWireOps.sum` — dtype-preserving group sum (int32 payloads
@@ -8,7 +7,16 @@ form only — the mesh forms come with ROADMAP A8).
 * :meth:`SimWireOps.max` — group max of non-negative block statistics;
 * :meth:`SimWireOps.count` — participants per group;
 * :meth:`SimWireOps.gathered` — the group's encoded payloads stacked for
-  a codec's own reduction (the sign vote).
+  a codec's own reduction (the sign vote);
+* :meth:`SimWireOps.sparse_mean` — top-k (values, indices) payloads into
+  the dense group mean.
+
+Three implementations keep the exactness ladder: ``SimWireOps`` (in-array
+reduces over the worker axis, the reference arithmetic), ``MeshWireOps``
+(process-group collectives of the mesh executor's production lowering, on
+the wire dtype; ``all_gather`` for the ragged forms) and ``ExactWireOps``
+(gather the whole worker block, replay ``SimWireOps``, keep this rank's
+row: bit for bit the sim's).
 
 Masks are 0/1 participation weights.  Group results come back broadcast
 over the worker rows of the input, as ``Topology.aggregate`` does.
@@ -20,7 +28,11 @@ from typing import Callable, Sequence, Tuple, Union
 import torch
 
 from repro_torch.core.aggregators import (axis_weighted_mean,
-                                          denominator_floor)
+                                          denominator_floor, named_axis_max,
+                                          named_axis_sum,
+                                          named_axis_weighted_mean)
+from repro_torch.device import recip_f32
+from repro_torch.kernels import comms as _kernels
 
 
 def _prod(xs) -> int:
@@ -116,3 +128,125 @@ class SimWireOps:
                                   + tuple(out.shape[1:]))
         return out.reshape((self.outer * self.members,)
                            + tuple(out.shape[2:]))
+
+    def sparse_mean(self, vals, idx, dense):
+        """Top-k under sim: the decoded dense payload is already here, so
+        its group mean is the legacy arithmetic, bit for bit; no kernel."""
+        del vals, idx
+        return self.mean(dense)
+
+
+class MeshWireOps:
+    """Process-group collectives of the mesh executor's production
+    lowering: sums and maxes carry the wire dtype, ragged forms all-gather
+    the encoded arrays.  ``axes`` are the event's syncing
+    :class:`~repro_torch.launch.mesh.MeshAxes`; ``mask`` the (n,)
+    participation mask every rank holds, ``widx`` this rank's worker
+    index.  Each rank's arrays carry a leading worker axis of 1."""
+
+    backend = "mesh"
+
+    def __init__(self, axes, mask=None, widx: int = 0):
+        self.axes = axes
+        self.members = int(axes.size)
+        self.mask = mask
+        self.widx = int(widx)
+
+    def _own_w(self, dtype):
+        if self.mask is None:
+            return None
+        return self.mask.to(dtype)[self.widx]
+
+    def mean(self, x):
+        out = named_axis_weighted_mean(x.to(torch.float32),
+                                       self._own_w(torch.float32),
+                                       self.axes, torch.float32)
+        return out.to(x.dtype)
+
+    def sum(self, x):
+        return named_axis_sum(x, self.axes, self._own_w(x.dtype))
+
+    def max(self, x):
+        return named_axis_max(x, self.axes, self._own_w(x.dtype))
+
+    def count(self) -> Union[float, torch.Tensor]:
+        if self.mask is None:
+            return float(self.members)
+        c = self.axes.psum(self._own_w(torch.float32).reshape(()))
+        return torch.maximum(c, denominator_floor(torch.float32, c.device))
+
+    def _member_mask(self):
+        if self.mask is None:
+            return None
+        return self.axes.all_gather(
+            self._own_w(torch.float32).reshape(1))          # (members,)
+
+    def gathered(self, fn: Callable, *arrays):
+        """All-gather each (1, ...) wire array over the syncing group to
+        (members, ...), so the member axis lands at -2, call ``fn`` with the
+        (members,) mask or None, and give its result a worker axis of 1."""
+        g = [self.axes.all_gather(a) for a in arrays]
+        return fn(*g, self._member_mask())[None]
+
+    def sparse_mean(self, vals, idx, dense):
+        """The top-k compressed collective: all-gather of the (values,
+        indices) payloads, masked members' values zeroed, one fused
+        decode-reduce kernel into the dense sum, then the participant
+        mean."""
+        vg = self.axes.all_gather(vals)
+        ig = self.axes.all_gather(idx)
+        wm = self._member_mask()
+        if wm is not None:
+            vg = vg * wm[:, None]
+        k = vg.shape[-1]
+        size = _prod(dense.shape[1:])
+        acc = _kernels.topk_decode_reduce(
+            vg.reshape(-1, k).contiguous(), ig.reshape(-1, k).contiguous(),
+            size=size)
+        count = self.count()
+        # division rule: a constant count as a multiply by f32(1/count)
+        acc = acc * recip_f32(count) if isinstance(count, float) \
+            else acc / count
+        return acc.reshape((1,) + tuple(dense.shape[1:])).to(dense.dtype)
+
+
+class ExactWireOps:
+    """The mesh executor's ``exact=True`` form: all-gather the whole worker
+    block over ``world`` (every rank), replay :class:`SimWireOps` on it and
+    keep this rank's row — bit for bit the sim trajectory for every codec,
+    at n times the sync bytes (verification mode)."""
+
+    backend = "sim"  # replays the sim arithmetic
+
+    def __init__(self, world, widx: int, group_sizes: Sequence[int],
+                 level: int, mask=None):
+        self.world = world
+        self.widx = int(widx)
+        self.sim = SimWireOps(group_sizes, level, mask)
+
+    def _gather(self, x):
+        return self.world.all_gather(x)
+
+    def _pick(self, out):
+        return out[self.widx:self.widx + 1]
+
+    def mean(self, x):
+        return self._pick(self.sim.mean(self._gather(x)))
+
+    def sum(self, x):
+        return self._pick(self.sim.sum(self._gather(x)))
+
+    def max(self, x):
+        return self._pick(self.sim.max(self._gather(x)))
+
+    def count(self):
+        c = self.sim.count()
+        return c if isinstance(c, float) else self._pick(c)
+
+    def gathered(self, fn: Callable, *arrays):
+        g = [self._gather(a) for a in arrays]
+        return self._pick(self.sim.gathered(fn, *g))
+
+    def sparse_mean(self, vals, idx, dense):
+        return self._pick(self.sim.sparse_mean(
+            self._gather(vals), self._gather(idx), self._gather(dense)))

@@ -4,14 +4,17 @@
 ``EngineConfig(comms=...)`` resolves through :func:`make_comms` into a
 :class:`Comms` (or None = comms off).  A ``Comms`` owns HOW a sync payload
 crosses the wire — one fused flat buffer per dtype or raw leaves, through
-which codec — while the executor passes its own ``reduce_fn``.  Not ported
-yet: error-feedback residuals, which only the top-k codec uses (ROADMAP
-B6).
+which codec — while the executor passes its own ``reduce_fn``.  A stateful
+codec (top-k) carries per-worker error-feedback residuals, shaped like the
+payload, in ``HSGDState.comms``: :meth:`Comms.init_state` makes them and
+:meth:`Comms.sync` threads them.
 """
 from __future__ import annotations
 
 import math
 from typing import Any, Callable, Dict, Optional, Tuple, Union
+
+import torch
 
 from repro_torch.comms.codecs import Compressor, CompressorLike, make_compressor
 from repro_torch.comms.flat import FlatBucket
@@ -50,29 +53,64 @@ class Comms:
             fb = self._plans[key] = FlatBucket.plan(tree)
         return fb
 
+    def _payloads(self, tree):
+        """tree -> (the payload tree the codec sees, FlatBucket or None)."""
+        if not self.bucket:
+            return tree, None
+        fb = self._plan(tree)
+        return fb.flatten(tree), fb
+
+    def init_state(self, params):
+        """Per-worker error-feedback residuals (f32 zeros shaped like the
+        payload, worker axis first), or None for a stateless codec."""
+        if not self.codec.stateful:
+            return None
+        payload, _ = self._payloads(params)
+        return tree_map(lambda x: torch.zeros(x.shape, dtype=torch.float32,
+                                              device=x.device), payload)
+
     def sync(self, tree, reduce_fn: Callable[[Any], Any],
-             reduce_mode: Optional[Any] = None):
+             reduce_mode: Optional[Any] = None,
+             residual: Optional[Any] = None):
         """Aggregate ``tree`` through the wire.
 
         ``reduce_mode=None``: bucketize (unless ``bucket=False``),
         codec-roundtrip each worker's payload, reduce the decoded payloads
         with ``reduce_fn``, restore the tree.  ``reduce_mode=<WireOps>``:
         hand each payload to the codec's compressed collective
-        (``reduce_fn`` unused).  Layout-free codecs under the sim backend
-        skip the bucket: it would only move data."""
-        if not self.bucket or (
-                reduce_mode is not None and self.codec.layout_free
-                and getattr(reduce_mode, "backend", None) == "sim"):
+        (``reduce_fn`` unused).  Layout-free stateless codecs under the sim
+        backend skip the bucket: it would only move data.
+
+        With a ``residual`` (a stateful codec's ``init_state`` tree), the
+        residual rule: the codec adds it before encoding and the pair
+        (aggregated tree, new residual) comes back; without one, the tree
+        alone."""
+        if reduce_mode is not None and self.codec.layout_free \
+                and not self.codec.stateful \
+                and getattr(reduce_mode, "backend", None) == "sim":
             payload, fb = tree, None
         else:
-            fb = self._plan(tree)
-            payload = fb.flatten(tree)
-        if reduce_mode is not None:
-            reduced = tree_map(lambda x: self.codec.reduce(x, reduce_mode),
-                               payload)
+            payload, fb = self._payloads(tree)
+        leaves, tdef = tree_flatten(payload)
+        new_res = None
+        if residual is not None and self.codec.stateful:
+            res = tdef.flatten_up_to(residual)
+            if reduce_mode is not None:
+                pairs = [self.codec.reduce(x, reduce_mode, r)
+                         for x, r in zip(leaves, res)]
+            else:
+                pairs = [self.codec.roundtrip(x, r)
+                         for x, r in zip(leaves, res)]
+            sent = tdef.unflatten([p for p, _ in pairs])
+            new_res = tdef.unflatten([r for _, r in pairs])
+        elif reduce_mode is not None:
+            sent = tdef.unflatten([self.codec.reduce(x, reduce_mode)
+                                   for x in leaves])
         else:
-            reduced = reduce_fn(tree_map(self.codec.roundtrip, payload))
-        return reduced if fb is None else fb.unflatten(reduced)
+            sent = tdef.unflatten([self.codec.roundtrip(x) for x in leaves])
+        reduced = sent if reduce_mode is not None else reduce_fn(sent)
+        out = reduced if fb is None else fb.unflatten(reduced)
+        return out if residual is None else (out, new_res)
 
     def payload_spec(self, params) -> Tuple[Tuple[WireArray, ...], int]:
         """Static (wire arrays, element count) for ONE worker's payload."""

@@ -5,7 +5,8 @@ from repro_torch.core.aggregators import (Aggregator,
                                           MeanAggregator, SignSGDAggregator,
                                           WeightedAggregator,
                                           make_aggregator)
-from repro_torch.core.executors import Executor, SimExecutor, make_executor
+from repro_torch.core.executors import (Executor, MeshExecutor, SimExecutor,
+                                        make_executor)
 from repro_torch.core.grouping import (Grouping, contiguous,
                                        diversity_grouping, group_iid,
                                        group_noniid, random_grouping,
@@ -18,7 +19,7 @@ from repro_torch.core.topology import (GroupedTopology, SyncEvent, Topology,
 
 __all__ = [
     "HSGD", "EngineConfig", "HSGDState", "Round", "compile_schedule",
-    "Executor", "SimExecutor", "make_executor",
+    "Executor", "SimExecutor", "MeshExecutor", "make_executor",
     "Topology", "SyncEvent", "GroupedTopology", "UniformTopology",
     "make_topology",
     "Aggregator", "MeanAggregator", "CompressedAggregator",

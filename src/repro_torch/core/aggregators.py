@@ -8,10 +8,13 @@ collective a topology knows how to do — a weighted mean:
     means    = {k: weighted_mean(v) for k, v in payloads.items()}
     new_x    = agg.decode(means, x)   # back to x.dtype
 
-Ported here: the segment form (in-array means over the worker axis, what
-the sim executor runs) and every rule of the reference: the plain mean,
-the compressed (bf16) mean, the fixed-weight mean and the SignSGD vote.
-The named-axis forms come with the mesh executor (ROADMAP A8).
+Two forms of the mean: the segment form (in-array means over the worker
+axis, what the sim executor runs) and the axis-collective form
+(:meth:`Aggregator.axis_aggregate`: a sum over a mesh group of processes,
+what the mesh executor's production lowering runs; the group is a
+:class:`~repro_torch.launch.mesh.MeshAxes`).  Every rule of the reference is
+here: the plain mean, the compressed (bf16) mean, the fixed-weight mean and
+the SignSGD vote.
 """
 from __future__ import annotations
 
@@ -48,6 +51,17 @@ class Aggregator(abc.ABC):
         """Optional static per-worker weights, multiplied into the
         participation mask by the topology."""
         return None
+
+    def axis_aggregate(self, x: torch.Tensor, axes,
+                       weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Axis-collective form: the same encode/mean/decode, the mean a
+        sum over the processes of ``axes`` (the syncing levels' group).
+        ``weight`` is this rank's scalar worker weight, or None."""
+        payloads = self.encode(x)
+        means = {k: named_axis_weighted_mean(v, weight, axes,
+                                             self.accum_dtype)
+                 for k, v in payloads.items()}
+        return self.decode(means, x)
 
 
 class MeanAggregator(Aggregator):
@@ -210,3 +224,51 @@ def segment_weighted_mean(v: torch.Tensor, w: torch.Tensor,
     den = torch.maximum(membership @ w,
                         denominator_floor(acc, v.device))[:, None]
     return num / den
+
+
+def flat_worker_index(mesh) -> int:
+    """This rank's flat worker index: row-major over the mesh's replica
+    axes (outermost first), the order of the worker axis."""
+    idx = 0
+    for c, size in zip(mesh.coords, mesh.group_sizes):
+        idx = idx * size + c
+    return idx
+
+
+def named_axis_weighted_mean(v: torch.Tensor, w: Optional[torch.Tensor],
+                             axes, acc: torch.dtype) -> torch.Tensor:
+    """Process-group counterpart of :func:`axis_weighted_mean`: the
+    level-ℓ mean is a sum over the group of the axes of levels >= ℓ.
+    ``w`` is this rank's scalar worker weight (or None)."""
+    if not axes.names:
+        return v.to(acc)
+    if w is None:
+        # the reference's pmean: psum, then the constant 1/size folded
+        return axes.psum(v.to(acc)) * recip_f32(axes.size)
+    w = w.to(acc).reshape(())
+    num = axes.psum(v.to(acc) * w)
+    den = torch.maximum(axes.psum(w), denominator_floor(acc, v.device))
+    return num / den
+
+
+def named_axis_sum(v: torch.Tensor, axes,
+                   w: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Wire-dtype sum over the group: the operand's own dtype rides the
+    collective (int32 sums as int32).  ``w`` is this rank's 0/1
+    participation weight, so a masked rank contributes exact zeros."""
+    if not axes.names:
+        return v
+    if w is not None:
+        v = v * w.to(v.dtype)
+    return axes.psum(v)
+
+
+def named_axis_max(v: torch.Tensor, axes,
+                   w: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Max over the group of NON-NEGATIVE statistics (block amax): a masked
+    rank's row is zeroed, never pulling a real max below zero."""
+    if not axes.names:
+        return v
+    if w is not None:
+        v = v * w.to(v.dtype)
+    return axes.pmax(v)

@@ -6,17 +6,20 @@ PyTorch counterpart of ``repro.core.hsgd``.
   history/eval bookkeeping and the typed-event dispatch;
 * executor layer (:mod:`repro_torch.core.executors`) — how a round body
   runs: ``SimExecutor`` maps the per-worker update over a leading worker
-  axis with ``torch.func.vmap`` and aggregates with in-array means.
+  axis with ``torch.func.vmap`` and aggregates with in-array means;
+  ``MeshExecutor`` runs one worker per process and aggregates with
+  ``torch.distributed`` collectives.
 
-State layout: every worker owns a full model replica; ``params`` and
-``opt_state`` carry a leading worker axis of size n.  ``HSGDState.step``
-is a Python int (PyTorch runs eagerly, so reading it costs no device
-sync).
+State layout: every worker owns a full model replica; ``params``,
+``opt_state`` and the comms residuals carry a leading worker axis of size n
+(of 1 under the mesh executor: each process holds its own worker's row).
+``HSGDState.step`` is a Python int (PyTorch runs eagerly, so reading it
+costs no device sync).
 
-Ported here: the barrier engine with comms.  Subsystems of the JAX engine
-that are not ported raise ``NotImplementedError`` naming the ROADMAP item
-that will port them: ``runtime``, ``metrics``, ``population`` and
-``async_levels`` (A7), ``executor="mesh"`` (A8).
+Ported here: the barrier engine with comms and error feedback, on the sim
+and mesh executors.  Subsystems of the JAX engine that are not ported raise
+``NotImplementedError`` naming the ROADMAP item that will port them:
+``runtime``, ``metrics``, ``population`` and ``async_levels`` (A7).
 """
 from __future__ import annotations
 
@@ -54,12 +57,12 @@ _NOT_PORTED = {"runtime": "A7", "metrics": "A7", "population": "A7",
 
 @dataclasses.dataclass
 class HSGDState:
-    """Engine state.  The JAX package's ``comms`` (error-feedback
-    residuals), ``metrics`` and ``pending`` fields belong to subsystems not
-    ported yet."""
+    """Engine state.  The JAX package's ``metrics`` and ``pending`` fields
+    belong to subsystems not ported yet."""
     params: Any      # leading worker axis n
     opt_state: Any   # leading worker axis n
     step: int        # steps taken
+    comms: Any = None  # error-feedback residuals (stateful codecs), axis n
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,12 +134,15 @@ class HSGD:
     def init_from_params(self, params, *,
                          device: DeviceLike = "cuda") -> HSGDState:
         """Start every worker from the given params (a tree of tensors,
-        e.g. :func:`repro_torch.models.simple.params_from_numpy`)."""
+        e.g. :func:`repro_torch.models.simple.params_from_numpy`); the
+        executor then places the state (the mesh keeps this rank's row)."""
         dev = resolve_device(device)
         params0 = tree_map(lambda x: torch.as_tensor(x).to(dev), params)
         n = self.topology.n
-        return HSGDState(_replicate(params0, n),
-                         _replicate(self.optimizer.init(params0), n), 0)
+        params = _replicate(params0, n)
+        cstate = self.comms.init_state(params) if self.comms else None
+        return self.executor.place(HSGDState(
+            params, _replicate(self.optimizer.init(params0), n), 0, cstate))
 
     # -- building blocks ------------------------------------------------------
     def local_update_fn(self):
@@ -183,10 +189,12 @@ class HSGD:
     def round_fn(self, rnd: Round):
         return self.executor.round_fn(rnd)
 
-    @staticmethod
-    def _on_device(tree, state: HSGDState):
+    def _on_device(self, batch, state: HSGDState):
+        """The (n, ...) batch's rows that this process's workers take (all
+        under sim, its own under the mesh), on the state's device."""
         dev = tree_leaves(state.params)[0].device
-        return tree_map(lambda v: torch.as_tensor(v).to(dev), tree)
+        return tree_map(lambda v: torch.as_tensor(v).to(dev),
+                        self.executor.local_rows(batch))
 
     def step(self, state: HSGDState, batch,
              mask=None) -> Tuple[HSGDState, Dict]:
@@ -197,7 +205,8 @@ class HSGD:
         batch = self._on_device(batch, state)
         if mask is None:
             return self.step_fn(event)(state, batch)
-        mask = self._on_device(mask, state).to(torch.bool)
+        dev = tree_leaves(state.params)[0].device
+        mask = torch.as_tensor(mask).to(dev).to(torch.bool)
         return self.step_fn(event, masked=True)(state, batch, mask)
 
     # -- schedule-compiled round executor --------------------------------------
@@ -273,9 +282,11 @@ class HSGD:
         return WireStats(self.topology, tuple(payload), n_elements)
 
     def mean_params(self, state: HSGDState):
-        """w̄^t (the analysis object; observable only at t = aG)."""
+        """w̄^t (the analysis object; observable only at t = aG).  Under the
+        mesh executor every rank gathers all workers' rows first, so this
+        is the sim's arithmetic on every rank."""
         return tree_map(lambda x: x.mean(0, dtype=torch.float32).to(x.dtype),
-                        state.params)
+                        self.executor.gather(state.params))
 
 
 def _moments_only(opt_state):

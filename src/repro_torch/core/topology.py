@@ -11,8 +11,10 @@ A ``Topology`` answers:
 
 ``UniformTopology`` (a ``HierarchySpec``; reshape-based means) and
 ``GroupedTopology`` (an explicit, possibly non-uniform ``Grouping`` with
-per-group periods; (N, n) membership segment means) implement it.  The
-named-axis mesh lowering is not ported yet (ROADMAP A8).
+per-group periods; (N, n) membership segment means) implement it.  For the
+mesh executor, ``level_axes`` names the mesh axes whose group realizes an
+event and ``shard_aggregate`` is the production lowering of an event for
+one rank's row, as collectives over that group.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ import torch
 
 from repro_torch.core.aggregators import (Aggregator, AggregatorLike,
                                           axis_weighted_mean,
-                                          make_aggregator,
+                                          denominator_floor, make_aggregator,
                                           segment_weighted_mean)
 from repro_torch.core.grouping import Grouping
 from repro_torch.core.hierarchy import HierarchySpec, local_sgd, two_level
@@ -83,6 +85,29 @@ class Topology(abc.ABC):
         None for all of them."""
         return None
 
+    def level_axes(self, event: SyncEvent,
+                   axis_names: Tuple[str, ...]) -> Tuple[str, ...]:
+        """The mesh axes whose group realizes ``event``: for a uniform
+        hierarchy (one axis per level, level 1 first) the axes of levels
+        >= ``event.level``; a grouping with no uniform level structure
+        lowers over all axes, the flat worker axis."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not map onto mesh axes; run it on "
+            "the simulator (executor='sim')")
+
+    def shard_aggregate(self, x, mesh, event: SyncEvent, *,
+                        worker_index: int, weight=None):
+        """Production mesh lowering of ``event`` for one rank's row: ``x``
+        has a leading worker axis of 1, ``mesh`` is the
+        :class:`~repro_torch.launch.mesh.HSGDMesh`, ``weight`` this rank's
+        scalar weight (runtime mask times static weights; None = plain
+        mean).  Agrees with :meth:`aggregate` to accumulation rounding (the
+        collective sums in its own order); the bitwise path is the mesh
+        executor's ``exact=True`` replay."""
+        raise NotImplementedError(
+            f"{type(self).__name__} has no mesh lowering; run it on the "
+            "simulator (executor='sim')")
+
     def _event_weights(self, event: SyncEvent, mask,
                        device) -> Optional[torch.Tensor]:
         """Combine runtime mask, aggregator weights and event weights into
@@ -136,6 +161,22 @@ class UniformTopology(Topology):
             return out.expand(shaped.shape).reshape(x.shape)
 
         return tree_map(per_leaf, tree)
+
+    def level_axes(self, event: SyncEvent,
+                   axis_names: Tuple[str, ...]) -> Tuple[str, ...]:
+        m = self.spec.num_levels
+        assert len(axis_names) == m, \
+            f"need one mesh axis per level, got {axis_names} for " \
+            f"{m}-level {self.spec}"
+        assert 1 <= event.level <= m, (event, self.spec)
+        assert event.groups is None, \
+            "uniform hierarchies never emit partial-group events"
+        return tuple(axis_names[event.level - 1:])
+
+    def shard_aggregate(self, x, mesh, event: SyncEvent, *,
+                        worker_index: int, weight=None):
+        axes = mesh.axes(self.level_axes(event, mesh.axis_names))
+        return self.aggregator.axis_aggregate(x, axes, weight=weight)
 
 
 class GroupedTopology(Topology):
@@ -208,6 +249,51 @@ class GroupedTopology(Topology):
             return out.to(x.dtype).reshape(x.shape)
 
         return tree_map(per_leaf, tree)
+
+    def level_axes(self, event: SyncEvent,
+                   axis_names: Tuple[str, ...]) -> Tuple[str, ...]:
+        """Flat-worker-axis lowering: every event's collective runs over
+        all axes; the membership lives in :meth:`shard_aggregate`'s one-hot
+        weights."""
+        assert event.level in (1, 2), event
+        return tuple(axis_names)
+
+    def shard_aggregate(self, x, mesh, event: SyncEvent, *,
+                        worker_index: int, weight=None):
+        """One sum over all ranks of (N, dim) membership-weighted
+        numerators (this rank's one-hot column times its payload); each
+        rank then keeps its own group's mean: the collective form of the
+        (N, n) segment mean, N times a uniform level's payload."""
+        assert event.level in (1, 2), event
+        agg = self.aggregator
+        acc = agg.accum_dtype
+        N = self.grouping.N
+        axes = mesh.axes(self.level_axes(event, mesh.axis_names))
+        if event.level == 1 or event.groups is None:
+            syncing = np.ones(N, bool)
+        else:
+            syncing = np.asarray(event.groups)
+        gid = int(self._assignment[worker_index])
+        col = torch.zeros((N,), dtype=acc, device=x.device)
+        col[gid] = 1
+        w = torch.ones((), dtype=acc, device=x.device) if weight is None \
+            else weight.to(acc).reshape(())
+        den = torch.maximum(axes.psum(col * w),
+                            denominator_floor(acc, x.device))      # (N,)
+        flat = x.reshape(x.shape[0], -1)                          # (1, dim)
+        payloads = agg.encode(flat)
+        means = {}
+        for k, v in payloads.items():
+            num = axes.psum(col[:, None] * (v.to(acc) * w))       # (N, dim)
+            gm = num / den[:, None]
+            if event.level == 1:
+                # global = unweighted mean of group means (paper A.1)
+                gm = gm.mean(0, keepdim=True, dtype=acc).expand(gm.shape)
+            means[k] = gm[gid:gid + 1]
+        out = agg.decode(means, flat)
+        if not syncing[self._assignment[worker_index]]:
+            out = flat
+        return out.to(x.dtype).reshape(x.shape)
 
 
 TOPOLOGIES = {}

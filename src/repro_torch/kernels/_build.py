@@ -21,8 +21,9 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 # -O3 and IEEE arithmetic: no --use_fast_math (see the division rules in
-# csrc/int8_codec.cu and csrc/sign_codec.cu, and the exactness notes of
-# csrc/flash_attention.cu, csrc/ssd_scan.cu and csrc/rglru_scan.cu)
+# csrc/int8_codec.cu and csrc/sign_codec.cu, the add rule of
+# csrc/topk_reduce.cu, and the exactness notes of csrc/flash_attention.cu,
+# csrc/ssd_scan.cu and csrc/rglru_scan.cu)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -39,6 +40,9 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "sign_codec": {
         "hsgd_sign_pack": (_P, _P, _P, _I64, _I64, _I32, _P),
         "hsgd_sign_unpack": (_P, _P, _P, _I64, _I64, _I32, _P),
+    },
+    "topk_reduce": {
+        "hsgd_topk_decode_reduce": (_P, _P, _P, _I64, _I64, _I64, _P),
     },
     "flash_attention": {
         "hsgd_flash_attention": (_P, _P, _P, _P, _I32, _I32, _I32, _I32,

@@ -1,5 +1,5 @@
-"""The wire codecs' kernels: wrappers over ``csrc/int8_codec.cu`` and
-``csrc/sign_codec.cu``.
+"""The wire codecs' kernels: wrappers over ``csrc/int8_codec.cu``,
+``csrc/sign_codec.cu`` and ``csrc/topk_reduce.cu``.
 
 Counterparts of the Pallas TPU kernels in ``repro.kernels.comms``:
 
@@ -8,7 +8,10 @@ Counterparts of the Pallas TPU kernels in ``repro.kernels.comms``:
 * :func:`int8_scale_quantize` — quantize against a caller-supplied (shared
   group-max) scale, the encode side of the int8 compressed allreduce;
 * :func:`sign_pack` / :func:`sign_unpack` — 1-bit signs, 8 per byte, with
-  one f32 ``mean|x|`` per block.
+  one f32 ``mean|x|`` per block;
+* :func:`topk_decode_reduce` — the top-k compressed collective's receive
+  side: M gathered (values, indices) payloads scatter-summed into one
+  dense buffer.
 
 Each wrapper checks its inputs and raises on anything its kernel does not
 take, allocates its outputs, and then either launches the CUDA kernel on
@@ -32,7 +35,7 @@ SIGN_MAX_BLOCK = 1 << 15
 # launches of each CUDA kernel since the last reset_launch_counts()
 launch_counts: Dict[str, int] = {
     "int8_quantize": 0, "int8_dequantize": 0, "int8_scale_quantize": 0,
-    "sign_pack": 0, "sign_unpack": 0}
+    "sign_pack": 0, "sign_unpack": 0, "topk_decode_reduce": 0}
 
 
 def reset_launch_counts() -> None:
@@ -192,3 +195,27 @@ def sign_unpack(bits: torch.Tensor, scale: torch.Tensor, *, size: int,
                 bits.data_ptr(), scale.data_ptr(), y.data_ptr(), r, size,
                 block)
     return y
+
+
+def topk_decode_reduce(vals: torch.Tensor, idx: torch.Tensor, *, size: int,
+                       block: int = 256) -> torch.Tensor:
+    """(vals f32 (M, K), idx int32 (M, K)) -> f32 (size,): the M payloads
+    scatter-summed, member after member (``ref.topk_reduce_ref``).
+    ``block`` is the reference's output tile; it is checked and changes no
+    value (per output element the sum order does not depend on it)."""
+    name = "topk_decode_reduce"
+    _check_block(name, block)
+    _check(name, "vals", vals, torch.float32)
+    _check(name, "idx", idx, torch.int32, tuple(vals.shape))
+    _same_device(name, vals, idx)
+    size = int(size)
+    if size < 0:
+        raise ValueError(f"{name}: size must be >= 0, got {size}")
+    if vals.device.type == "cpu":
+        return ref.topk_reduce_ref(vals, idx, size)
+    m, k = vals.shape
+    out = torch.empty((size,), dtype=torch.float32, device=vals.device)
+    if size:
+        _launch(name, "topk_reduce", "hsgd_topk_decode_reduce", vals.device,
+                vals.data_ptr(), idx.data_ptr(), out.data_ptr(), m, k, size)
+    return out

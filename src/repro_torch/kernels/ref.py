@@ -6,7 +6,9 @@ They run on any device.  The kernel wrappers in
 :mod:`repro_torch.kernels.ssd_scan` and :mod:`repro_torch.kernels.rglru_scan`
 use them for CPU tensors, the CPU tests hold them against the JAX
 package, and ``chip_smoke.py`` holds each CUDA kernel against them on the
-card: the codecs bitwise, attention and the two scans to a tolerance (see
+card: the codecs and the top-k decode-reduce bitwise (the latter with
+distinct indices in each member, see :func:`topk_reduce_ref`), attention
+and the two scans to a tolerance (see
 :func:`attention_ref`, :func:`ssd_ref`, :func:`rglru_ref`).  Every
 operation of the codecs' versions is chosen so that CPU, card and the
 jitted reference round identically:
@@ -139,6 +141,24 @@ def sign_unpack_ref(bits: torch.Tensor, scale: torch.Tensor, size: int,
     sgn = b.reshape(r, nb, block).to(torch.float32) * 2.0 - 1.0
     y = (sgn * scale[..., None]).reshape(r, nb * block)[:, :size]
     return y.contiguous()
+
+
+def topk_reduce_ref(vals: torch.Tensor, idx: torch.Tensor,
+                    size: int) -> torch.Tensor:
+    """Scatter-sum of M top-k payloads, (M, K) f32 values at (M, K) int32
+    indices, into one dense (size,) f32 buffer, by the order rule: starting
+    from zeros, one ``index_add_`` per member, in member order, which is the
+    order of the reference's ``zeros().at[idx.ravel()].add(...)`` on the
+    CPU.  Indices outside [0, size) are dropped, as the Pallas kernel drops
+    them (here: an add of +0.0 at index 0, which changes no value; the
+    reference's jnp oracle would wrap a negative index, numpy style)."""
+    out = torch.zeros((int(size),), dtype=torch.float32, device=vals.device)
+    for m in range(vals.shape[0] if size else 0):
+        i = idx[m].long()
+        ok = (i >= 0) & (i < size)
+        out.index_add_(0, torch.where(ok, i, 0),
+                       torch.where(ok, vals[m].to(torch.float32), 0.0))
+    return out
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -199,8 +199,7 @@ def test_init_from_generator_replicates_one_model():
 
 @pytest.mark.parametrize("field,value,item", [
     ("runtime", "on", "A7"), ("metrics", "on", "A7"),
-    ("population", object(), "A7"), ("async_levels", {1: 1}, "A7"),
-    ("executor", "mesh", "A8")])
+    ("population", object(), "A7"), ("async_levels", {1: 1}, "A7")])
 def test_unported_subsystems_raise(field, value, item):
     pm = SimpleModel(SimpleConfig(**MODEL))
     topo = P.make_topology("two_level", n=4, N=2, G=4, I=2)
@@ -210,15 +209,32 @@ def test_unported_subsystems_raise(field, value, item):
 
 @pytest.mark.parametrize("codec,item", [("sign", "B4"), ("topk", "B6")])
 def test_unported_codecs_raise(codec, item):
-    """Sign and its alias construct now; top-k still raises, naming B6."""
+    """Every codec of the reference constructs now: sign and its alias
+    (B4), top-k (B6), a stateful codec with the reference's default rate.
+    Their trajectories are held in ``tests/test_torch_sign.py`` and
+    ``tests/test_torch_topk.py``."""
     if codec == "sign":
         for name in ("sign", "1bit"):
             c = PC.Comms(name)
             assert repr(c) == repr(JC.Comms(name))
             assert c.codec.wire_reduce and not c.codec.layout_free
         return
-    with pytest.raises(NotImplementedError, match=item):
-        PC.Comms(codec)
+    for kwargs in ({}, {"rate": 0.25}):
+        c = PC.Comms(codec, **kwargs)
+        assert repr(c) == repr(JC.Comms(codec, **kwargs))
+        assert c.codec.stateful and c.codec.wire_reduce
+    assert sorted(PC.codecs.COMPRESSORS) == sorted(JC.codecs.COMPRESSORS)
+
+
+def test_mesh_executor_resolves():
+    """``executor="mesh"`` resolves to the mesh executor, which refuses to
+    bind outside a process group (``tests/test_torch_mesh.py`` runs it)."""
+    pm = SimpleModel(SimpleConfig(**MODEL))
+    topo = P.make_topology("two_level", n=4, N=2, G=4, I=2)
+    ex = P.make_executor("mesh", exact=True)
+    assert isinstance(ex, P.MeshExecutor) and ex.exact
+    with pytest.raises(RuntimeError, match="process group"):
+        P.HSGD(pm.loss, sgd(0.1), topo, P.EngineConfig(executor="mesh"))
 
 
 def _two_level(**kw):

@@ -57,7 +57,7 @@ def test_importing_the_port_loads_no_jax():
             "import repro_torch.kernels.ssd_scan\n"
             "import repro_torch.kernels.rglru_scan\n"
             "import repro_torch.models.transformer, repro_torch.serving\n"
-            "import repro_torch.launch.serve\n"
+            "import repro_torch.launch.serve, repro_torch.launch.mesh\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")
@@ -77,6 +77,7 @@ def no_cuda():
 def test_entry_points_refuse_missing_cuda(no_cuda):
     from repro_torch.core import HSGD, make_topology
     from repro_torch.device import resolve_device
+    from repro_torch.launch.mesh import launch
     from repro_torch.models import (SimpleConfig, SimpleModel,
                                     params_from_numpy, params_to_numpy)
     from repro_torch.optim import sgd
@@ -95,6 +96,7 @@ def test_entry_points_refuse_missing_cuda(no_cuda):
         lambda: engine.init(gen, model.init),
         lambda: engine.init_from_params(params),
         lambda: engine.init_from_params(params, device="cuda"),
+        lambda: launch(print, 2),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="cuda"):

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions: the
-codecs bitwise, attention and the SSD and RG-LRU scans to the reference's
-tolerances.
+codecs and the top-k decode-reduce bitwise (distinct indices in each
+member; 1e-6 where they repeat), attention and the SSD and RG-LRU scans to
+the reference's tolerances.
 
 Marked ``gpu``: a CUDA kernel has no CPU mode, so these tests skip without
 a card.  The file imports no JAX, so it also runs where only PyTorch is
@@ -57,7 +58,7 @@ def test_kernels_match_plain_versions(cuda, cols, block):
     assert torch.equal(g, ref.int8_scale_quant_ref(x, group, block))
     assert kern.launch_counts == {"int8_quantize": 1, "int8_dequantize": 1,
                                   "int8_scale_quantize": 1, "sign_pack": 0,
-                                  "sign_unpack": 0}
+                                  "sign_unpack": 0, "topk_decode_reduce": 0}
 
 
 @pytest.mark.gpu
@@ -93,7 +94,7 @@ def test_sign_kernels_match_plain_versions(cuda, cols, block):
     assert signs[-1].all() and not scale[-1].any()    # all-zero row
     assert kern.launch_counts == {"int8_quantize": 0, "int8_dequantize": 0,
                                   "int8_scale_quantize": 0, "sign_pack": 1,
-                                  "sign_unpack": 1}
+                                  "sign_unpack": 1, "topk_decode_reduce": 0}
 
 
 @pytest.mark.gpu
@@ -108,6 +109,34 @@ def test_sign_kernels_at_a_large_shape(cuda):
     b_p, s_p = ref.sign_pack_ref(x, 1024)
     assert torch.equal(bits, b_p) and torch.equal(scale, s_p)
     assert torch.equal(y, ref.sign_unpack_ref(bits, scale, x.shape[1], 1024))
+
+
+# top-k decode-reduce: (M, K, size), the kernel phase's cases of
+# chip_smoke.py short of its timing shape, plus an empty payload
+TOPK_CASES = [(8, 530, 2120), (4, 530, 2120), (8, 132, 2120), (1, 1, 7),
+              (16, 15, 244), (8, 4, 100), (3, 0, 10)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", TOPK_CASES, ids=str)
+def test_topk_decode_reduce_matches_plain_version(cuda, case):
+    m, k, size = case
+    gen = torch.Generator(device=cuda).manual_seed(m * k + size)
+    vals = torch.randn((m, k), generator=gen, device=cuda)
+    vals[0] = 0.0                                    # a masked member
+    idx = torch.stack([torch.randperm(size, generator=gen, device=cuda)[:k]
+                       for _ in range(m)]).to(torch.int32)
+    kern.reset_launch_counts()
+    out = kern.topk_decode_reduce(vals, idx, size=size)
+    torch.cuda.synchronize()
+    assert kern.launch_counts["topk_decode_reduce"] == 1
+    assert torch.equal(out, ref.topk_reduce_ref(vals, idx, size))
+    assert torch.equal(kern.topk_decode_reduce(vals, idx, size=size), out)
+    rep = torch.randint(0, size, (m, k), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    torch.testing.assert_close(kern.topk_decode_reduce(vals, rep, size=size),
+                               ref.topk_reduce_ref(vals, rep, size),
+                               atol=1e-6, rtol=1e-6)
 
 
 # flash attention: (B, Sq, Sk, Hq, Hk, D, dtype, causal, window), the
