@@ -42,7 +42,8 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "hsgd_sign_unpack": (_P, _P, _P, _I64, _I64, _I32, _P),
     },
     "topk_reduce": {
-        "hsgd_topk_decode_reduce": (_P, _P, _P, _I64, _I64, _I64, _P),
+        "hsgd_topk_decode_reduce": (_P, _P, _P, _I64, _I64, _I64, _P, _I64,
+                                    _P),
     },
     "flash_attention": {
         "hsgd_flash_attention": (_P, _P, _P, _P, _I32, _I32, _I32, _I32,

@@ -197,6 +197,52 @@ def sign_unpack(bits: torch.Tensor, scale: torch.Tensor, *, size: int,
     return y
 
 
+# The tiling of csrc/topk_reduce.cu (its constants, mirrored): output tiles
+# of TOPK_TILE floats, chunks of TOPK_CHUNK entries that never straddle two
+# members, a scan in blocks of TOPK_SCAN_BLOCK; payloads of at most
+# TOPK_SMALL_ENTRIES entries into one tile take one CTA and no scratch;
+# past TOPK_SMEM_BINS tiles the histogram lives in global memory.
+TOPK_TILE = 1 << 14
+TOPK_CHUNK = 1 << 13
+TOPK_SCAN_BLOCK = 4096
+TOPK_SMALL_ENTRIES = 1 << 18
+TOPK_SMEM_BINS = 1 << 14
+_INT32_MAX = 2**31 - 1
+
+
+def _align16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def topk_plan(m: int, k: int, size: int) -> Dict[str, int]:
+    """How the kernel tiles an (m, k) payload into ``size`` outputs, and the
+    scratch bytes it needs: {"single": 1 if one CTA takes it all, "tiles",
+    "chunks_per_member", "chunks", "scan_len", "scan_blocks",
+    "shared_bins", "bytes"}."""
+    entries = m * k
+    tiles = -(-size // TOPK_TILE)
+    plan = {"single": 0, "tiles": tiles, "chunks_per_member": 0,
+            "chunks": 0, "scan_len": 0, "scan_blocks": 0, "shared_bins": 1,
+            "bytes": 0}
+    if size <= TOPK_TILE and entries <= TOPK_SMALL_ENTRIES:
+        plan.update(single=1, tiles=int(size > 0))
+        return plan
+    if entries == 0 or size == 0:
+        return plan
+    cpm = -(-k // TOPK_CHUNK)
+    chunks = m * cpm
+    scan_len = tiles * chunks + 1
+    scan_blocks = -(-scan_len // TOPK_SCAN_BLOCK)
+    shared = tiles <= TOPK_SMEM_BINS
+    nbytes = (_align16(4 * scan_len) + _align16(4 * scan_blocks)
+              + (0 if shared else _align16(4 * (scan_len - 1)))
+              + 8 * entries)
+    plan.update(chunks_per_member=cpm, chunks=chunks, scan_len=scan_len,
+                scan_blocks=scan_blocks, shared_bins=int(shared),
+                bytes=nbytes)
+    return plan
+
+
 def topk_decode_reduce(vals: torch.Tensor, idx: torch.Tensor, *, size: int,
                        block: int = 256) -> torch.Tensor:
     """(vals f32 (M, K), idx int32 (M, K)) -> f32 (size,): the M payloads
@@ -214,8 +260,15 @@ def topk_decode_reduce(vals: torch.Tensor, idx: torch.Tensor, *, size: int,
     if vals.device.type == "cpu":
         return ref.topk_reduce_ref(vals, idx, size)
     m, k = vals.shape
+    if m * k > _INT32_MAX:
+        raise ValueError(f"{name}: {m} x {k} entries is past the kernel's "
+                         f"int32 slots")
     out = torch.empty((size,), dtype=torch.float32, device=vals.device)
     if size:
+        plan = topk_plan(m, k, size)
+        scratch = torch.empty((plan["bytes"],), dtype=torch.uint8,
+                              device=vals.device)
         _launch(name, "topk_reduce", "hsgd_topk_decode_reduce", vals.device,
-                vals.data_ptr(), idx.data_ptr(), out.data_ptr(), m, k, size)
+                vals.data_ptr(), idx.data_ptr(), out.data_ptr(), m, k, size,
+                scratch.data_ptr() if plan["bytes"] else None, plan["bytes"])
     return out

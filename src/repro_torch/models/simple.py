@@ -41,6 +41,17 @@ def _dense(gen, din, dout):
             "b": torch.zeros((dout,))}
 
 
+def _affine(x: torch.Tensor, p) -> torch.Tensor:
+    """``x @ w + b`` as a product and a sum over ``din``: (rows, din) x
+    (din, dout).  Not a matmul, so that a worker's rows get the same bits
+    whether an executor maps the update over 1 worker or over n: on the
+    card, cuBLAS runs a batched product of 1 through another kernel than
+    one of n (the sim maps over every worker, a mesh rank over its own),
+    and int8 rounding grows that last bit into whole quanta.  The sum's
+    order per output depends on ``din`` alone."""
+    return (x.unsqueeze(-1) * p["w"]).sum(-2) + p["b"]
+
+
 class SimpleModel:
     def __init__(self, cfg: SimpleConfig):
         self.cfg = cfg
@@ -73,11 +84,11 @@ class SimpleModel:
     def logits(self, params, x):
         cfg = self.cfg
         if cfg.kind == "linear":
-            return x @ params["out"]["w"] + params["out"]["b"]
+            return _affine(x, params["out"])
         if cfg.kind == "mlp":
-            h = torch.relu(x @ params["h1"]["w"] + params["h1"]["b"])
-            h = torch.relu(h @ params["h2"]["w"] + params["h2"]["b"])
-            return h @ params["out"]["w"] + params["out"]["b"]
+            h = torch.relu(_affine(x, params["h1"]))
+            h = torch.relu(_affine(h, params["h2"]))
+            return _affine(h, params["out"])
         d, c = cfg.input_dim, cfg.channels
         h = x.reshape(x.shape[0], d, d, c).permute(0, 3, 1, 2)   # NCHW
         for name in ("c1", "c2"):
@@ -87,7 +98,7 @@ class SimpleModel:
             h = F.max_pool2d(h, 2, 2)
         # flatten in NHWC order, as the reference does
         h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)
-        return h @ params["out"]["w"] + params["out"]["b"]
+        return _affine(h, params["out"])
 
     def loss(self, params, batch) -> Tuple[torch.Tensor, Dict]:
         lg = self.logits(params, batch["x"])

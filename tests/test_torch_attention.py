@@ -66,6 +66,66 @@ def test_flash_attention_matches_pallas_interpret(case, dtype):
                                atol=tol, rtol=tol)
 
 
+def _bf16_design(q, k, v, causal, window):
+    """The bf16 kernel's arithmetic (csrc/flash_attention.cu) in plain
+    torch: bf16 inputs upcast, each dot scaled by f32(log2(e)/sqrt(D)),
+    softmax by exp2 with f32 statistics, then P split by truncation into
+    bf16 hi (p's top 8 significand bits), mid (the next 8) and lo (the
+    rest), which sum to p exactly, and three f32 products with V, as the
+    tensor cores take them.  Returns that output (before the bf16 store)
+    and the same with P in f32, both (B, Sq, Hq, D) float32."""
+    n_rep = q.shape[2] // k.shape[2]
+    qf = q.float()
+    kf = k.float().repeat_interleave(n_rep, dim=2)
+    vf = v.float().repeat_interleave(n_rep, dim=2)
+    d = q.shape[-1]
+    scale_log2 = torch.tensor(np.log2(np.e) / np.sqrt(d), dtype=torch.float32)
+    logits = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale_log2
+    sq, sk = q.shape[1], k.shape[1]
+    qpos = torch.arange(sq)[:, None]
+    kpos = torch.arange(sk)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= (qpos - kpos) < window
+    logits = torch.where(mask, logits, -1e30)
+    p = torch.exp2(logits - logits.amax(-1, keepdim=True))
+    l = p.sum(-1, keepdim=True)
+    split, rest, terms = 0, p, []
+    for _ in range(3):                  # hi, mid, lo
+        term = (rest.view(torch.int32) & -65536).view(torch.float32)
+        assert torch.equal(term.to(torch.bfloat16).float(), term)
+        rest = rest - term              # exact in float32
+        terms.append(term)
+        split = split + torch.einsum("bhqk,bkhd->bhqd", term, vf)
+    assert not rest.any() and torch.equal(terms[0] + terms[1] + terms[2], p)
+    split = split / l
+    full = torch.einsum("bhqk,bkhd->bhqd", p, vf) / l
+    return split.transpose(1, 2), full.transpose(1, 2)
+
+
+@pytest.mark.parametrize("case", SWEEP, ids=str)
+def test_bf16_design_matches_pallas_interpret(case):
+    """The bf16 kernel's arithmetic, emulated, within the bf16 tolerance
+    (2e-2) of the Pallas kernel in interpret mode; the three-term split of
+    P is exact, and its three products cost at most 2^-15 of max |o|
+    against one product with P in float32."""
+    b, s, hq, hk, d, blk, causal, window = case
+    np_dt, dt, tol = DTYPES["bfloat16"]
+    q, k, v = _qkv(s + d, b, s, s, hq, hk, d, np_dt)
+    want = jflash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                  causal=causal, window=window, block_q=blk, block_k=blk,
+                  interpret=True)
+    split, full = _bf16_design(_to_torch(q, dt), _to_torch(k, dt),
+                               _to_torch(v, dt), causal, window)
+    np.testing.assert_allclose(split.to(dt).float().numpy(),
+                               np.asarray(want, np.float32),
+                               atol=tol, rtol=tol)
+    err = float((split - full).abs().max())
+    assert err <= 2.0**-15 * float(full.abs().max()), err
+
+
 @pytest.mark.parametrize("case", [
     (2, 24, 24, 4, 2, 32, True, None),
     (2, 24, 24, 4, 1, 32, True, 5),

@@ -115,6 +115,12 @@ def test_sign_kernels_at_a_large_shape(cuda):
 # chip_smoke.py short of its timing shape, plus an empty payload
 TOPK_CASES = [(8, 530, 2120), (4, 530, 2120), (8, 132, 2120), (1, 1, 7),
               (16, 15, 244), (8, 4, 100), (3, 0, 10)]
+# the kernel's tiling edges (tiles of 2**14 floats): just above one tile,
+# no multiple of it, K = 0 above one tile, past the payloads that one CTA
+# takes whole (more than 2**18 entries into one tile), and past the 2**14
+# tiles whose counts fit shared memory
+TOPK_EDGES = [(4, 3000, 2**14 + 1), (8, 5000, 100003), (3, 0, 100000),
+              (17, 2**14, 2**14), (2, 1000, 2**28 + 5)]
 
 
 @pytest.mark.gpu
@@ -139,13 +145,69 @@ def test_topk_decode_reduce_matches_plain_version(cuda, case):
                                atol=1e-6, rtol=1e-6)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", TOPK_EDGES, ids=str)
+def test_topk_decode_reduce_tiling_edges(cuda, case):
+    """Bit for bit with distinct indices in each member, and the same on a
+    second call.  With indices repeated within members each output is a
+    sum of about M*K/size terms taken in another order than the plain
+    version's, so both are held to the float32 summation bound against the
+    exact (float64) sum: |error| <= n * 2**-24 * sum |v| per element, n
+    its number of terms."""
+    m, k, size = case
+    gen = torch.Generator(device=cuda).manual_seed(m * k + size)
+    vals = torch.randn((m, k), generator=gen, device=cuda)
+    idx = torch.stack([torch.randperm(size, generator=gen, device=cuda)[:k]
+                       for _ in range(m)]).to(torch.int32)
+    kern.reset_launch_counts()
+    out = kern.topk_decode_reduce(vals, idx, size=size)
+    torch.cuda.synchronize()
+    assert kern.launch_counts["topk_decode_reduce"] == 1
+    assert torch.equal(out, ref.topk_reduce_ref(vals, idx, size))
+    assert torch.equal(kern.topk_decode_reduce(vals, idx, size=size), out)
+    rep = torch.randint(0, size, (m, k), generator=gen, device=cuda,
+                        dtype=torch.int32).reshape(-1).long()
+    flat = vals.reshape(-1)
+    exact = torch.zeros(size, dtype=torch.float64, device=cuda).index_add_(
+        0, rep, flat.double())
+    terms = torch.zeros(size, dtype=torch.float64, device=cuda).index_add_(
+        0, rep, torch.ones_like(flat, dtype=torch.float64))
+    mass = torch.zeros(size, dtype=torch.float64, device=cuda).index_add_(
+        0, rep, flat.double().abs())
+    bound = terms * 2.0**-24 * mass
+    rep32 = rep.to(torch.int32).reshape(m, k)
+    for got in (kern.topk_decode_reduce(vals, rep32, size=size),
+                ref.topk_reduce_ref(vals, rep32, size)):
+        assert bool(((got.double() - exact).abs() <= bound).all())
+
+
+@pytest.mark.gpu
+def test_topk_decode_reduce_drops_indices_out_of_range(cuda):
+    """Indices below 0 and at or past size (every third entry each) are
+    dropped, as by the plain version, over 21 tiles."""
+    m, k, size = 2, 40000, 20 * 2**14 + 3
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    vals = torch.randn((m, k), generator=gen, device=cuda)
+    idx = torch.stack([torch.randperm(size, generator=gen, device=cuda)[:k]
+                       for _ in range(m)]).to(torch.int32)
+    idx[:, 0::3] = -1 - idx[:, 0::3]
+    idx[:, 1::3] += size
+    out = kern.topk_decode_reduce(vals, idx, size=size)
+    assert torch.equal(out, ref.topk_reduce_ref(vals, idx, size))
+    assert int((out != 0).sum()) <= m * (k // 3 + 1)
+
+
 # flash attention: (B, Sq, Sk, Hq, Hk, D, dtype, causal, window), the
 # kernel phase's cases of chip_smoke.py
 ATTN_CASES = [
     (8, 1024, 1024, 14, 2, 64, "bfloat16", True, None),    # qwen2 prefill
     (1, 2048, 2048, 16, 8, 256, "bfloat16", True, 1024),   # gemma3 local
+    (8, 1024, 1024, 10, 1, 256, "bfloat16", True, 2048),   # recurrentgemma
     *[(2, 300, 300, 4, 2, d, "float32", True, None)
       for d in (32, 64, 96, 128, 192, 256)],
+    *[(2, 300, 300, 4, 2, d, "bfloat16", True, None) for d in (32, 192)],
+    (1, 40, 40, 3, 1, 32, "bfloat16", True, 4),            # ragged S
+    (2, 100, 260, 4, 2, 64, "bfloat16", False, None),      # Sq != Sk
     (1, 40, 40, 3, 1, 32, "float32", True, 4),             # ragged S
     (2, 1000, 1000, 4, 2, 64, "float32", True, None),      # ragged S
     (2, 100, 260, 4, 2, 64, "float32", False, None),       # Sq != Sk

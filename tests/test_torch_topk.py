@@ -131,6 +131,51 @@ def test_topk_wrapper_refuses_what_the_kernel_does_not_take():
     assert tkern.topk_decode_reduce(v, i, size=0).shape == (0,)
 
 
+# (M, K, size) -> the kernel's tiling: single CTA or not, tiles, chunks
+# per member; the timing shape, the quickstart's sync, a size just above
+# one tile, one that is no multiple of it, a payload with out-of-range
+# indices, K = 0 above and below one tile, and past the shared histogram
+@pytest.mark.parametrize("case,want", [
+    ((8, 1048581, 2**24 + 77), (0, 1025, 129)),
+    ((8, 530, 2120), (1, 1, 0)),
+    ((4, 3000, 16385), (0, 2, 1)),
+    ((8, 5000, 100003), (0, 7, 1)),
+    ((2, 40000, 20 * 2**14 + 3), (0, 21, 5)),
+    ((3, 0, 100000), (0, 7, 0)),
+    ((3, 0, 5000), (1, 1, 0)),
+    ((1, 2**19, 2**14), (0, 1, 64)),
+    ((2, 10, 2**14 * (2**14 + 1)), (0, 2**14 + 1, 1)),
+], ids=str)
+def test_topk_plan_sizes_the_scratch(case, want):
+    """The wrapper's tiling helper (mirror of csrc/topk_reduce.cu): the
+    scratch holds the (tile, chunk) scan with its block sums, the global
+    cursors past TOPK_SMEM_BINS tiles, and 8 bytes per entry, each part
+    16-byte aligned; a single-CTA or empty payload needs none."""
+    m, k, size = case
+    plan = tkern.topk_plan(m, k, size)
+    assert (plan["single"], plan["tiles"], plan["chunks_per_member"]) == want
+    assert plan["tiles"] == -(-size // tkern.TOPK_TILE) or plan["single"]
+    assert plan["chunks"] == m * plan["chunks_per_member"]
+    if plan["single"] or m * k == 0:
+        assert plan["bytes"] == 0
+        return
+    chunks, tiles = plan["chunks"], plan["tiles"]
+    # no chunk straddles two members
+    assert (plan["chunks_per_member"] - 1) * tkern.TOPK_CHUNK < k \
+        <= plan["chunks_per_member"] * tkern.TOPK_CHUNK
+    assert plan["scan_len"] == tiles * chunks + 1
+    assert plan["scan_blocks"] == -(-plan["scan_len"] // tkern.TOPK_SCAN_BLOCK)
+    assert plan["shared_bins"] == int(tiles <= tkern.TOPK_SMEM_BINS)
+    scan = -(-4 * plan["scan_len"] // 16) * 16
+    sums = -(-4 * plan["scan_blocks"] // 16) * 16
+    cursors = 0 if plan["shared_bins"] else \
+        -(-4 * (plan["scan_len"] - 1) // 16) * 16
+    assert plan["bytes"] == scan + sums + cursors + 8 * m * k
+    if case == (8, 1048581, 2**24 + 77):
+        assert (chunks, plan["scan_len"], plan["bytes"]) == \
+            (1032, 1057801, 71341440)
+
+
 def _ties(seed: int, rows: int, cols: int) -> np.ndarray:
     """Values from a handful of magnitudes with random signs, so |x| ties
     everywhere, plus one row of zeros (all tied)."""
