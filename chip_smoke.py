@@ -11,8 +11,9 @@ or of the JAX package.  It
    ``build/kernels/``, one ``nvcc`` per source, all started together, and
    prints what ``ptxas`` reports; counts instructions in the SASS
    (``cuobjdump``): flash_attention's library must hold HGMMA (wgmma) and
-   UTMALDG (TMA loads), topk_reduce's no float atomic and no
-   compare-and-swap on global memory;
+   UTMALDG (TMA loads), ssd_scan's HMMA (mma.sync) and neither of those,
+   topk_reduce's no float atomic and no compare-and-swap on global
+   memory;
 3. kernel phase: holds every kernel bitwise against its plain PyTorch
    version on the card, with one all-zero row each: the int8 kernels at
    the main path's shape (8, 2120) and at (8, 2**24 + 77) with a ragged
@@ -95,11 +96,16 @@ or of the JAX package.  It
    ``rglru_scan`` against their plain versions (``ssd_ref``,
    ``rglru_ref``) on the card at the reference's sweep shapes, the largest
    SSD state the kernel takes, a strided SSD input (column slices of one
-   projection, which must give the contiguous inputs' result bit for bit)
-   and the full-width shapes of mamba2-130m's and recurrentgemma-2b's
-   forward (8 x 1024), to the reference's limits (SSD: max |diff| / max
-   |plain| < 1e-4 in float32, 3e-2 in bfloat16; RG-LRU: atol 5e-5, rtol
-   1e-4), and times kernel and plain version at the full-width shapes;
+   projection, which must give the contiguous inputs' result bit for bit),
+   the full-width shapes of mamba2-130m's and recurrentgemma-2b's
+   forward (8 x 1024) and, for SSD, the edges of its chunk-parallel passes
+   (S = 1025, S < chunk, chunk 32, odd P and N), to the reference's
+   limits (SSD: max |diff| / max |plain| < 1e-4 in float32, 3e-2 in
+   bfloat16; RG-LRU: atol 5e-5, rtol 1e-4), and times kernel and plain
+   version at the full-width
+   shapes, SSD with the device time of each of its four launches
+   (``torch.profiler``) and the bound of its design (the scratch traffic
+   of its passes added to the function's bytes) beside the function's;
 8. SSM forward phase: ``DecoderLM.loss`` of mamba2-130m and
    recurrentgemma-2b at full width with ``use_kernels=True``, random
    weights from a seeded generator, 8 sequences of 1024 random tokens
@@ -109,7 +115,8 @@ or of the JAX package.  It
    (recurrentgemma-2b).  Held against the same call with the plain
    versions on the card: float32 logits within PREFILL_RTOL of the largest
    and CE within CE_RTOL relative, bfloat16 CE within CE_ATOL_BF16;
-   prints tokens/s and peak memory;
+   prints tokens/s (the median of LOSS_REPS calls after a warm-up call at
+   the same shape) and peak memory;
 9. SSM serving phase: both models at full width through
    ``DecodeEngine.generate`` with ``use_kernels=True``, 8 prompts of 1024
    tokens and 32 greedy tokens, in float32 and bfloat16.  The prefill
@@ -201,11 +208,16 @@ LOSS_RTOL = 1e-3
 MIN_ACC = 0.9
 # SSD scan cases (Bt, S, H, P, N, chunk): the reference's sweep
 # (tests/test_kernels.py:41-46, with a padded S and a single chunk), the
-# largest state the kernel takes, and mamba2-130m's full-width forward
-# (8 x 1024), which is timed; each in float32 and bfloat16
+# largest state the kernel takes, mamba2-130m's full-width forward
+# (8 x 1024), which is timed, the edges of the kernel's passes at full
+# width: S = 1025 (17 chunks, one row in the last), S < chunk, and chunk
+# 32, and odd P and N (P N no multiple of 4: the scalar state_pass and the
+# single-element stores); each in float32 and bfloat16
+SSD_TIMED = (8, 1024, 24, 64, 128, 64)
 SSD_CASES = ((2, 32, 4, 8, 16, 8), (1, 40, 2, 16, 8, 16), (2, 64, 3, 8, 4, 64),
-             (1, 16, 1, 4, 4, 4), (2, 100, 3, 64, 256, 64),
-             (8, 1024, 24, 64, 128, 64))
+             (1, 16, 1, 4, 4, 4), (2, 100, 3, 64, 256, 64), SSD_TIMED,
+             (8, 1025, 24, 64, 128, 64), (2, 40, 24, 64, 128, 64),
+             (8, 1024, 24, 64, 128, 32), (2, 50, 3, 3, 5, 16))
 # max |kernel - plain| / max |plain| (tests/test_kernels.py:56-57)
 SSD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 # RG-LRU scan cases (Bt, S, W): the reference's sweep (tests/test_kernels.py
@@ -225,6 +237,7 @@ SSM_BATCH, SSM_SEQ, SSM_GEN = 8, 1024, 32
 # to bf16; the CE is held to 2e-2 nats.
 CE_RTOL = 1e-4
 CE_ATOL_BF16 = 2e-2
+LOSS_REPS = 3        # timed loss calls after a warm-up at the full shape
 # the top-k slice.  Cases (M, K, size, kind) of topk_decode_reduce: the
 # quickstart's global and local syncs at rate 0.25 and its global sync at
 # rate 1/16, the smallest payload, a masked (zeroed) member, and the timing
@@ -304,8 +317,12 @@ def time_ms(torch, fn, inner: int, reps: int = 25, warmup: int = 3) -> float:
 
 
 def stage_ms(torch, fn, calls: int = 5) -> dict:
-    """Device ms per call of ``fn`` by CUDA kernel (``torch.profiler``
-    over ``calls`` calls after one untimed)."""
+    """Device ms per launch of each CUDA kernel of ``fn`` (``torch.profiler``
+    over ``calls`` calls after one untimed): its summed device time over
+    the launches the profiler recorded, divided by their number.  On the
+    H100 the profiler has recorded only 3 of 5 calls' launches of a kernel,
+    so dividing by ``calls`` would understate it.  Every kernel timed so
+    launches once per call."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -314,7 +331,7 @@ def stage_ms(torch, fn, calls: int = 5) -> dict:
             fn()
         torch.cuda.synchronize()
     return {e.key.split("::")[-1].split("(")[0]:
-            e.device_time_total / calls / 1e3
+            e.device_time_total / e.count / 1e3
             for e in prof.key_averages() if e.device_time_total > 0}
 
 
@@ -328,15 +345,16 @@ def bound_ms(n_bytes: int, n_ops: int, ops_per_s: float = F32_OPS_PER_S):
 
 def sass_census(lib: Path) -> dict:
     """Counts of the SASS instructions this script holds the redesigned
-    kernels to, in one built library (``cuobjdump -sass``): tensor-core
-    products (HGMMA), TMA loads (UTMALDG), and float atomics or
-    compare-and-swaps on global memory."""
+    kernels to, in one built library (``cuobjdump -sass``): warpgroup
+    tensor-core products (HGMMA), warp-level ones (HMMA, ``mma.sync``), TMA
+    loads (UTMALDG), and float atomics or compare-and-swaps on global
+    memory."""
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                          text=True, timeout=300)
     check(out.returncode == 0, f"cuobjdump failed on {lib}: {out.stderr}")
-    count = {"HGMMA": 0, "UTMALDG": 0, "global float atomics": 0,
+    count = {"HGMMA": 0, "HMMA": 0, "UTMALDG": 0, "global float atomics": 0,
              "global CAS": 0}
     for line in out.stdout.splitlines():
         # "/*0070*/  [@P0] OPCODE.MODIFIERS operands ;  /* encoding */"
@@ -345,6 +363,7 @@ def sass_census(lib: Path) -> dict:
             words = words[1:]
         op = words[0] if words else ""
         count["HGMMA"] += op.startswith("HGMMA")
+        count["HMMA"] += op.startswith("HMMA")
         count["UTMALDG"] += op.startswith("UTMALDG")
         is_global = op.startswith(("RED", "ATOMG", "ATOM."))
         count["global float atomics"] += is_global and "F32" in op
@@ -1300,13 +1319,26 @@ def ssd_work(bt, s, h, p, n, chunk):
     return bt * ops
 
 
+def ssd_design_bytes(bt, s, h, p, n, chunk):
+    """The scratch traffic the kernel's passes add to the function's bytes
+    (``ssd_scan.ssd_plan``): the chunk states written (chunk_state), read
+    and written (state_pass) and read (chunk_scan); G written and read; cum
+    written and read twice."""
+    from repro_torch.kernels.ssd_scan import ssd_plan
+    plan = ssd_plan(bt, s, h, p, n, chunk)
+    return (4 * plan["states_bytes"] + 2 * plan["G_bytes"]
+            + 3 * plan["cum_bytes"])
+
+
 def ssm_kernel_phase(torch, kssd, krg, ref):
     """``ssd_scan`` and ``rglru_scan`` against their plain versions on the
     card at SSD_CASES (float32 and bfloat16), a strided-input case and
     RGLRU_CASES; kernel and plain version timed at the full-width shapes
-    (the last case of each).  Returns the two kernels' records."""
+    (SSD_TIMED, the last RG-LRU case), ``ssd_scan`` with the device time
+    of each of its four launches.  Returns the two kernels' records."""
     gen = torch.Generator(device="cuda").manual_seed(3)
-    recs = {"ssd_scan": {"max_abs_err": 0.0, "max_rel_err": 0.0,
+    recs = {"ssd_scan": {"max_abs_err": 0.0,
+                         "max_rel_err": {"float32": 0.0, "bfloat16": 0.0},
                          "timed": {}},
             "rglru_scan": {"max_abs_err": 0.0, "timed": {}}}
     rec = recs["ssd_scan"]
@@ -1326,31 +1358,38 @@ def ssm_kernel_phase(torch, kssd, krg, ref):
                   f"ssd_scan differs from its plain version at {at}: max "
                   f"|diff| / max |plain| {rel}")
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
-            rec["max_rel_err"] = max(rec["max_rel_err"], rel)
+            rec["max_rel_err"][dtype] = max(rec["max_rel_err"][dtype], rel)
             print(f"ssd_scan {at}: max |kernel - plain| {err!r}, relative "
                   f"{rel!r}", flush=True)
-            if case == SSD_CASES[-1]:
+            if case == SSD_TIMED:
                 nbytes = sum(t.numel() * t.element_size() for t in ins) \
                     + y.numel() * y.element_size()
                 ops = ssd_work(*case)
                 rate = BF16_OPS_PER_S if dtype == "bfloat16" \
                     else F32_OPS_PER_S
                 b_ms, b_by = bound_ms(nbytes, ops, rate)
+                d_bytes = nbytes + ssd_design_bytes(*case)
+                d_ms, d_by = bound_ms(d_bytes, ops, rate)
                 t = {"shape": list(case), "dtype": dtype, "bytes": nbytes,
                      "ops": ops, "bound_ms": b_ms, "bound_by": b_by,
+                     "design_bytes": d_bytes, "design_bound_ms": d_ms,
+                     "design_bound_by": d_by,
                      "ms": time_ms(torch, lambda: kssd.ssd_scan(
                          *ins, chunk=chunk), 5),
+                     "stages_ms": stage_ms(torch, lambda: kssd.ssd_scan(
+                         *ins, chunk=chunk)),
                      "plain_ms": time_ms(torch, lambda: ref.ssd_ref(*ins), 1,
                                          reps=3, warmup=1),
                      "library_ms": None}
                 rec["timed"][dtype] = t
-                print(f"ssd_scan {at}: kernel {t['ms']:.5f} ms, plain "
-                      f"{t['plain_ms']:.5f} ms, bound {b_ms:.5f} ms ({b_by})",
-                      flush=True)
+                print(f"ssd_scan {at}: kernel {t['ms']:.5f} ms (by launch "
+                      f"{t['stages_ms']}), plain {t['plain_ms']:.5f} ms, "
+                      f"bound {b_ms:.5f} ms ({b_by}), this design's bound "
+                      f"{d_ms:.5f} ms ({d_by}, {d_bytes} bytes)", flush=True)
             del ins, y, want
     # strided inputs: x, B and C as column slices of one projection, as
     # ssd_apply passes them; the kernel reads them in place
-    bt, s, h, p, n, chunk = SSD_CASES[-1]
+    bt, s, h, p, n, chunk = SSD_TIMED
     for dtype in ("float32", "bfloat16"):
         xbc = torch.randn((bt, s, h * p + 2 * n), generator=gen,
                           device="cuda").to(getattr(torch, dtype))
@@ -1369,8 +1408,8 @@ def ssm_kernel_phase(torch, kssd, krg, ref):
         check(torch.equal(y, y_c) and rel < SSD_TOL[dtype],
               f"ssd_scan on strided inputs ({dtype}): equal to contiguous "
               f"{torch.equal(y, y_c)}, relative difference {rel}")
-        rec["max_rel_err"] = max(rec["max_rel_err"], rel)
-        print(f"ssd_scan strided {SSD_CASES[-1]} {dtype}: equal to the "
+        rec["max_rel_err"][dtype] = max(rec["max_rel_err"][dtype], rel)
+        print(f"ssd_scan strided {SSD_TIMED} {dtype}: equal to the "
               f"contiguous inputs' result, relative {rel!r}", flush=True)
         del xbc, xs, B, C, x, y, y_c, want
     rec = recs["rglru_scan"]
@@ -1420,7 +1459,9 @@ def ssm_forward_phase(torch, kern, kattn, kssd, krg, ref):
     """``DecoderLM.loss`` of mamba2-130m and recurrentgemma-2b at full width
     with use_kernels=True on SSM_BATCH x SSM_SEQ random tokens, float32 and
     bfloat16, held against the same call with the plain versions on the
-    card.  Returns the launches of each run and the throughputs."""
+    card.  Each is timed as the median of LOSS_REPS calls after a warm-up
+    call at the same shape; the first timed call's launches are counted.
+    Returns the launches of each run and the throughputs."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
@@ -1439,17 +1480,21 @@ def ssm_forward_phase(torch, kern, kattn, kssd, krg, ref):
                                  generator=gen, device="cuda")
             batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
             with torch.inference_mode():
-                model.loss(params, {k: v[:, :128] for k, v in batch.items()})
+                model.loss(params, batch)          # warm-up, full shape
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
                 for counter in counters:
                     counter.reset_launch_counts()
-                t0 = time.perf_counter()
-                loss_k, _ = model.loss(params, batch)
-                torch.cuda.synchronize()
-                secs = time.perf_counter() - t0
-                launches = {k: n for counter in counters
-                            for k, n in counter.launch_counts.items()}
+                runs = []
+                for rep in range(LOSS_REPS):
+                    t0 = time.perf_counter()
+                    loss_k, _ = model.loss(params, batch)
+                    torch.cuda.synchronize()
+                    runs.append(time.perf_counter() - t0)
+                    if rep == 0:
+                        launches = {k: n for counter in counters
+                                    for k, n in counter.launch_counts.items()}
+                secs = statistics.median(runs)
                 peak = torch.cuda.max_memory_allocated() / 1e9
                 logits_k = model.forward(params, batch["tokens"])[0] \
                     if dtype == "float32" else None
@@ -1463,12 +1508,13 @@ def ssm_forward_phase(torch, kern, kattn, kssd, krg, ref):
                                   for n in counter.launch_counts.values()),
                           f"{label}: the plain-version run launched a kernel")
             ce_k, ce_p = float(loss_k), float(loss_p)
-            tp = {"seconds": secs,
+            tp = {"seconds": secs, "runs_s": runs,
                   "tok_per_s": SSM_BATCH * SSM_SEQ / secs, "peak_gb": peak}
             out["throughput"][label] = tp
             out["launches"][label] = launches
             print(f"{label}: {SSM_BATCH} x {SSM_SEQ} tokens in {secs:.4f} s "
-                  f"({tp['tok_per_s']:.1f} tok/s), peak {peak:.3f} GB, "
+                  f"(median of {runs}; {tp['tok_per_s']:.1f} tok/s), peak "
+                  f"{peak:.3f} GB, "
                   f"launches {launches}, CE kernels {ce_k!r} plain "
                   f"{ce_p!r}", flush=True)
             check(launches == want,
@@ -1667,7 +1713,7 @@ def main() -> int:
         print(f"built {', '.join(str(lib.relative_to(ROOT)) for lib in libs)}"
               f" in {time.perf_counter() - t0:.1f} s", flush=True)
         sass = {name: sass_census(lib) for name, lib in zip(SOURCES, libs)
-                if name in ("flash_attention", "topk_reduce")}
+                if name in ("flash_attention", "topk_reduce", "ssd_scan")}
         print(f"SASS census: {sass}", flush=True)
         check(sass["flash_attention"]["HGMMA"] > 0
               and sass["flash_attention"]["UTMALDG"] > 0,
@@ -1675,6 +1721,10 @@ def main() -> int:
         check(sass["topk_reduce"]["global float atomics"] == 0
               and sass["topk_reduce"]["global CAS"] == 0,
               "topk_reduce's library has global float atomics or CAS")
+        check(sass["ssd_scan"]["HMMA"] > 0 and sass["ssd_scan"]["HGMMA"] == 0
+              and sass["ssd_scan"]["UTMALDG"] == 0,
+              "ssd_scan's library has no HMMA (mma.sync), or HGMMA or "
+              "UTMALDG")
         recs = kernel_phase(torch, kern, ref)
         recs.update(sign_kernel_phase(torch, kern, ref))
         for name, rec in recs.items():

@@ -50,9 +50,9 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
                                  _I32, _I32, _I32, _I32, _I32, _P),
     },
     "ssd_scan": {
-        "hsgd_ssd_scan": (_P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32,
-                          _I32, _I32, _I32, _I64, _I64, _I64, _I64, _I64,
-                          _I64, _P),
+        "hsgd_ssd_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32,
+                          _I32, _I32, _I32, _I32, _I32, _I64, _I64, _I64,
+                          _I64, _I64, _I64, _P),
     },
     "rglru_scan": {
         "hsgd_rglru_scan": (_P, _P, _P, _I32, _I32, _I32, _P),

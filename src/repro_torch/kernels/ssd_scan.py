@@ -5,11 +5,14 @@ Counterpart of the Pallas TPU kernel ``repro.kernels.ssd_scan``:
 with h_t = exp(dt_t A) h_{t-1} + dt_t B_t x_t from a zero state.
 
 The wrapper checks its inputs and raises on anything the kernel does not
-take, allocates the output, and then either launches the CUDA kernel on
-PyTorch's current stream (CUDA tensors) or runs the plain version
+take, allocates the output and the kernel's scratch (:func:`ssd_plan`),
+and then either launches the CUDA kernel on PyTorch's current stream
+(CUDA tensors) or runs the plain version
 :func:`repro_torch.kernels.ref.ssd_ref` (CPU tensors, and only then).
-Every launch adds one to :data:`launch_counts`.  It refuses inputs that
-require grad while autograd records (:func:`repro_torch.kernels.refuse_grad`).
+The kernel is chunk-parallel: one call is four launches (prep,
+chunk_state, state_pass, chunk_scan; ``csrc/ssd_scan.cu``), and adds one
+to :data:`launch_counts`.  It refuses inputs that require grad while
+autograd records (:func:`repro_torch.kernels.refuse_grad`).
 
 Strided inputs: the kernel takes the batch and sequence strides of x, B
 and C and reads them in place when their inner dims are packed (x's
@@ -20,6 +23,7 @@ contiguous.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Tuple
 
 import torch
@@ -27,14 +31,14 @@ import torch
 from repro_torch.kernels import ref, refuse_grad
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# the kernel's register tiles: chunk <= 64 rows, head dim <= 64 columns,
+# the kernels' register tiles: chunk <= 64 rows, head dim <= 64 columns,
 # state <= 256 columns; and the card's shared memory for one CTA
 MAX_CHUNK, MAX_HEAD_DIM, MAX_STATE = 64, 64, 256
 MAX_SMEM = 232448
-_GRID_Y = 65535           # CUDA's limit on gridDim.y
-_INT32 = 2**31 - 1
+N_TILE = 64               # columns of N the kernels stage at a time
+_GRID_YZ = 65535          # CUDA's limit on gridDim.y and gridDim.z
 
-# launches of the CUDA kernel since the last reset_launch_counts()
+# calls that launched the CUDA kernel since the last reset_launch_counts()
 launch_counts: Dict[str, int] = {"ssd_scan": 0}
 
 
@@ -43,12 +47,47 @@ def reset_launch_counts() -> None:
         launch_counts[k] = 0
 
 
+def _r16(v: int) -> int:
+    return -(-v // 16) * 16
+
+
 def smem_bytes(chunk: int, p: int, n: int) -> int:
-    """Dynamic shared memory of one CTA: the (P, N) state, the chunk's x,
-    B, C, the (Q, Q) decay matrix and three Q-vectors, in float32, with
-    rows of B, C and the state padded by one float."""
-    return 4 * (p * (n + 1) + chunk * p + 2 * chunk * (n + 1)
-                + chunk * (chunk + 1) + 3 * chunk)
+    """Dynamic shared memory of the largest CTA of the launches of either
+    route.  float32: chunk_state stages x (Q, P), B (Q, N) and w (Q);
+    chunk_scan x (Q, P), a tile of C (Q, N_TILE + 1) and of the state (P,
+    N_TILE + 1), M (Q, Q + 1), cum and dt (Q each).  bfloat16, padded to
+    multiples of 16 with rows of (width + 8) bf16: prep stages C and B
+    (Q, N); chunk_state x (Q, P), three terms of w B (Q, N_TILE) and w;
+    chunk_scan x, three terms of M (Q, Q), a tile of C (Q, N_TILE), three
+    of the state (P, N_TILE), cum and dt."""
+    f32_state = 4 * (chunk * p + chunk * n + chunk)
+    f32_scan = 4 * (chunk * p + (chunk + p) * (N_TILE + 1)
+                    + chunk * (chunk + 1) + 2 * chunk)
+    q, pp, tb = _r16(chunk), _r16(p), N_TILE + 8
+    bf16_prep = 2 * 2 * q * (_r16(n) + 8)
+    bf16_state = 2 * (q * (pp + 8) + 3 * q * tb) + 4 * q
+    bf16_scan = (2 * (q * (pp + 8) + 3 * q * (q + 8) + q * tb + 3 * pp * tb)
+                 + 8 * q)
+    return max(f32_state, f32_scan, bf16_prep, bf16_state, bf16_scan)
+
+
+def ssd_plan(bt: int, s: int, h: int, p: int, n: int, chunk: int
+             ) -> Dict[str, object]:
+    """The kernel's float32 scratch for x (bt, s, h, p) and B, C (bt, s, n)
+    in chunks of ``chunk``, the mirror of ``csrc/ssd_scan.cu``'s buffers:
+    {"chunks": nc = ceil(s / chunk), "states": (bt, nc, h, p, n) (each
+    chunk's own state, then the state entering it), "G": (bt, nc, chunk,
+    chunk) (C B^T, shared by the heads), "cum": (bt, nc, h, chunk), and
+    their sizes in bytes, "states_bytes", "G_bytes", "cum_bytes",
+    "bytes"}."""
+    nc = -(-s // chunk)
+    shapes = {"states": (bt, nc, h, p, n), "G": (bt, nc, chunk, chunk),
+              "cum": (bt, nc, h, chunk)}
+    plan: Dict[str, object] = {"chunks": nc, **shapes}
+    for k, shape in shapes.items():
+        plan[f"{k}_bytes"] = 4 * math.prod(shape)
+    plan["bytes"] = sum(plan[f"{k}_bytes"] for k in shapes)
+    return plan
 
 
 def _check(x, dt, A, B, C, chunk) -> None:
@@ -129,18 +168,22 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError(f"ssd_scan: chunk {chunk}, head dim {p}, state {n} "
                          f"need {smem_bytes(chunk, p, n)} bytes of shared "
                          f"memory, more than {MAX_SMEM}")
-    if bt > _GRID_Y or max(s, h) > _INT32:
-        raise ValueError(f"ssd_scan: shape {tuple(x.shape)} is past the "
-                         "kernel's grid")
+    plan = ssd_plan(bt, s, h, p, n, chunk)
+    if max(bt, h, plan["chunks"]) > _GRID_YZ:
+        raise ValueError(f"ssd_scan: shape {tuple(x.shape)} in chunks of "
+                         f"{chunk} is past the kernel's grid")
     (x, B, C), strides = kernel_operands(x, B, C)
     dt, A = dt.contiguous(), A.contiguous()
+    scratch = [torch.empty(plan[k], dtype=torch.float32, device=x.device)
+               for k in ("states", "G", "cum")]
     from repro_torch.kernels._build import load
     fn = load("ssd_scan").hsgd_ssd_scan
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-                 C.data_ptr(), y.data_ptr(), _DTYPES[x.dtype], bt, s, h, p,
-                 n, chunk, *strides, stream)
+                 C.data_ptr(), y.data_ptr(),
+                 *(t.data_ptr() for t in scratch), _DTYPES[x.dtype], bt, s,
+                 h, p, n, chunk, *strides, stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan: CUDA kernel launch failed with "
                            f"cudaError {err}")

@@ -253,8 +253,9 @@ def test_flash_attention_refuses_what_it_does_not_take(cuda):
 
 
 # SSD scan: (Bt, S, H, P, N, chunk), the reference's sweep
-# (tests/test_kernels.py) and the kernel phase's full-width shape of
-# chip_smoke.py (mamba2-130m's forward, 8 x 1024)
+# (tests/test_kernels.py), the kernel phase's full-width shape of
+# chip_smoke.py (mamba2-130m's forward, 8 x 1024) and the edges of the
+# kernel's chunk-parallel passes at full width
 SSD_CASES = [
     (2, 32, 4, 8, 16, 8),
     (1, 40, 2, 16, 8, 16),    # padded
@@ -262,6 +263,10 @@ SSD_CASES = [
     (1, 16, 1, 4, 4, 4),
     (2, 100, 3, 64, 256, 64),  # the largest state the kernel takes
     (8, 1024, 24, 64, 128, 64),
+    (8, 1025, 24, 64, 128, 64),  # 17 chunks, one row in the last
+    (2, 40, 24, 64, 128, 64),    # S < chunk
+    (8, 1024, 24, 64, 128, 32),  # chunk 32
+    (2, 50, 3, 3, 5, 16),        # odd P and N: P N no multiple of 4
 ]
 SSD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}   # tests/test_kernels.py:56
 

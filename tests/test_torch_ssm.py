@@ -107,6 +107,129 @@ def test_ssd_scan_matches_pallas(case, dtype):
     assert _maxdiff(got.float(), want) / scale < tol
 
 
+def _split3(v):
+    """v split by truncation into bf16 hi (v's top 8 significand bits), mid
+    (the next 8) and lo (the rest), as the kernel's mma.sync operands.  The
+    three sum to v exactly where |v| >= 2^-110, so that lo's last bit,
+    2^-23 of v's leading one, is a bit of float32's normal range; below,
+    a term that falls among the subnormals keeps only its bits down to
+    2^-133 (bf16's subnormal quantum), and the sum is v to within that."""
+    terms, rest = [], v
+    for _ in range(3):
+        term = (rest.view(torch.int32) & -65536).view(torch.float32)
+        assert torch.equal(term.to(torch.bfloat16).float(), term)
+        rest = rest - term                  # exact in float32
+        terms.append(term)
+    total = terms[0] + terms[1] + terms[2]
+    normal = v.abs() >= 2.0**-110
+    assert torch.equal(total[normal], v[normal]) and not rest[normal].any()
+    assert bool((rest.abs() < 2.0**-133).all())
+    return terms
+
+
+def _ssd_passes(x, dt, A, B, C, chunk, split):
+    """The kernel's four passes (csrc/ssd_scan.cu) in plain torch, on
+    inputs upcast to float32 and zero-padded to whole chunks: prep (G = C
+    B^T on the causal triangle, cum), chunk_state (s_c = sum_j w_j x_j
+    B_j^T), state_pass (the state entering each chunk) and chunk_scan (y =
+    M x + exp(cum_i) C . entering).  With ``split`` the products take the
+    bf16 route's operands: w B, M and the entering state split exactly
+    into three bf16 terms, each term's product with the exact bf16 operand
+    summed in float32.  Returns y (Bt, S, H, P) float32 and the scratch in
+    the kernel's layouts: states (Bt, nc, H, P, N) (entering), G (Bt, nc,
+    Q, Q), cum (Bt, nc, H, Q)."""
+    bt, s, h, p = x.shape
+    n, q = B.shape[-1], chunk
+    nc = -(-s // q)
+    pad = nc * q - s
+    xf = torch.nn.functional.pad(x.float(), (0, 0, 0, 0, 0, pad))
+    xf = xf.view(bt, nc, q, h, p)
+    dtf = torch.nn.functional.pad(dt, (0, 0, 0, pad)).view(bt, nc, q, h)
+    Bf, Cf = (torch.nn.functional.pad(t.float(), (0, 0, 0, pad))
+              .view(bt, nc, q, n) for t in (B, C))
+    tri = torch.ones((q, q), dtype=torch.bool).tril()
+
+    def product(eq, exact, b):
+        """einsum of an exact operand with b, b split on the bf16 route"""
+        if not split:
+            return torch.einsum(eq, exact, b)
+        return sum(torch.einsum(eq, exact, t) for t in _split3(b))
+
+    # 1. prep
+    G = torch.where(tri, torch.einsum("bcin,bcjn->bcij", Cf, Bf), 0.0)
+    cum = torch.cumsum(dtf * A, dim=2)                       # (bt, nc, q, h)
+    # 2. chunk_state
+    w = dtf * torch.exp(cum[:, :, -1:] - cum)
+    if split:
+        wB = w[..., None] * Bf[:, :, :, None, :]             # (bt,nc,q,h,n)
+        sc = product("bcjhp,bcjhn->bchpn", xf, wB)
+    else:
+        sc = torch.einsum("bcjhp,bcjn->bchpn", w[..., None] * xf, Bf)
+    # 3. state_pass
+    running = torch.zeros((bt, h, p, n))
+    entering = []
+    for c in range(nc):
+        entering.append(running)
+        running = running * torch.exp(cum[:, c, -1])[..., None, None] \
+            + sc[:, c]
+    E = torch.stack(entering, 1)                             # (bt,nc,h,p,n)
+    # 4. chunk_scan
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]     # (bt,nc,i,j,h)
+    decay = torch.exp(torch.where(tri[..., None], diff, -torch.inf))
+    M = G[..., None] * decay * dtf[:, :, None, :, :]
+    yi = product("bcjhp,bcijh->bcihp", xf, M)
+    ye = product("bcin,bchpn->bcihp", Cf, E)
+    y = yi + torch.exp(cum)[..., None] * ye
+    return (y.reshape(bt, nc * q, h, p)[:, :s], E, G,
+            cum.transpose(2, 3).contiguous())
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", SSD_SWEEP, ids=str)
+def test_ssd_passes_match_pallas_interpret(case, dtype):
+    """The kernel's chunk-parallel passes, emulated (float32 FMAs for
+    float32; the bf16 route's exact three-term splits for bfloat16), within
+    the reference's tolerance of the Pallas kernel in interpret mode."""
+    bt, s, h, p, n, chunk = case
+    np_dt, t_dt, tol = DTYPES[dtype]
+    ins = _ssd_inputs(sum(case), bt, s, h, p, n, np_dt)
+    want = jssd_scan(*(jnp.asarray(a) for a in ins), chunk=chunk,
+                     interpret=True)
+    y, *_ = _ssd_passes(*(_to_torch(a) for a in ins), chunk,
+                        split=dtype == "bfloat16")
+    want = np.asarray(want, np.float32)
+    scale = float(np.abs(want).max()) + 1e-9
+    assert _maxdiff(y.to(t_dt).float(), want) / scale < tol
+
+
+@pytest.mark.parametrize("case", SSD_SWEEP + [(8, 1024, 24, 64, 128, 64)],
+                         ids=str)
+def test_ssd_plan_sizes_the_scratch(case):
+    """ssd_plan gives the shapes and bytes of the passes' float32 scratch:
+    at mamba2-130m's full width (8 x 1024) 100,663,296 bytes of chunk
+    states, 2,097,152 of G and 786,432 of cum; on the sweep, the shapes of
+    the emulated passes' buffers."""
+    bt, s, h, p, n, chunk = case
+    plan = kssd.ssd_plan(bt, s, h, p, n, chunk)
+    nc = -(-s // chunk)
+    assert plan["chunks"] == nc
+    assert plan["states"] == (bt, nc, h, p, n)
+    assert plan["G"] == (bt, nc, chunk, chunk)
+    assert plan["cum"] == (bt, nc, h, chunk)
+    for k in ("states", "G", "cum"):
+        assert plan[f"{k}_bytes"] == 4 * int(np.prod(plan[k]))
+    assert plan["bytes"] == sum(plan[f"{k}_bytes"]
+                                for k in ("states", "G", "cum"))
+    if case[1] == 1024:
+        assert (plan["states_bytes"], plan["G_bytes"], plan["cum_bytes"]) \
+            == (100663296, 2097152, 786432)
+        return
+    ins = [_to_torch(a) for a in _ssd_inputs(sum(case), bt, s, h, p, n)]
+    _, E, G, cum = _ssd_passes(*ins, chunk, split=False)
+    assert (tuple(E.shape), tuple(G.shape), tuple(cum.shape)) \
+        == (plan["states"], plan["G"], plan["cum"])
+
+
 @pytest.mark.parametrize("case", RGLRU_SWEEP, ids=str)
 def test_rglru_scan_matches_pallas(case):
     bt, s, w, block = case
@@ -336,8 +459,13 @@ def test_ssd_scan_reads_strided_inputs_in_place():
 
 
 def test_smem_bytes_at_mamba2_shape():
-    assert kssd.smem_bytes(64, 64, 128) == 132864
-    assert kssd.smem_bytes(64, 64, 256) <= kssd.MAX_SMEM
+    """The largest CTA of the chunk-parallel passes (bf16 chunk_scan at
+    Mamba-2's shape; float32 chunk_state at N = 256) leaves room for at
+    least two CTAs on an SM (228 KB, 1 KB of it reserved per CTA)."""
+    assert kssd.smem_bytes(64, 64, 128) == 74240
+    assert kssd.smem_bytes(64, 64, 256) == 82176
+    for n in (128, 256):
+        assert 2 * (kssd.smem_bytes(64, 64, n) + 1024) <= 233472
 
 
 def test_kernels_refuse_grad():
