@@ -80,6 +80,8 @@ or of the JAX package.  It
    gemma3 local-layer shape (b) and recurrentgemma-2b's attention (c),
    beside the bounds at 4*D, 6*D and 8*D tensor-core operations per pair
    (the function's, a two-term and the kernel's three-term split of P);
+   (a) and (c) also in float32 (the SIMT kernel) beside one float32 call
+   and the float32 bound (4*D operations at the float32 rate);
 6. serving phase: qwen2-0.5b at full width (24 layers, d_model 896) with
    ``use_kernels=True``, random weights from a seeded generator, through
    ``DecodeEngine.generate``: 8 requests, prompts of 1024 random tokens,
@@ -124,10 +126,25 @@ or of the JAX package.  It
    recurrentgemma-2b) and no SSM kernel, as the reference's prefill runs
    no SSM kernel.  Float32 tokens must equal the plain versions' run's,
    bfloat16 scores agree to SCORE_ATOL; prints prefill and decode tokens/s;
-10. prints one ``{"ssm": ...}`` JSON line with the SSM throughputs, one
-   ``{"topk_sim": ..., "mesh": ...}`` line, one ``{"kernels": [...]}``
-   JSON line (all nine kernels), then the result line
-   ``{"ok": true, "device": {...}}`` last.
+10. experiments phase: the paper's claims on the card, each main of
+   ``repro_torch.experiments`` with its reference's asserts unchanged:
+   fig3_sandwich and table2_time_to_acc at the reference's full setting
+   (quick=False: 6 seeds, T=240 and T=300), fig3c_grouping,
+   fig_e4_participation and fig_e8_multilevel at quick=True,
+   table1_bounds and plan_deployment on the host, one JSON line each with
+   its setting, result and wall seconds (if the phase takes longer than
+   EXPERIMENTS_BUDGET_S, fig3 and table2 run at quick=True as well);
+   table2's time to 75% under the paper's Table E.1 communication model
+   beside the card's own training seconds to the same step;
+   ``steps_per_sec`` of two_level(8, 2, 16, 4) at T=256 per step and
+   through ``run_rounds`` (median of SPS_REPS); fig3's hsgd_N2 trajectory
+   (seed 0, T=240) on the card against the CPU within LOSS_RTOL, and
+   fig3c's four divergences on the same grads within DIV_RTOL of the
+   largest; no kernel may launch (this path runs no codec);
+11. prints one ``{"ssm": ...}`` JSON line with the SSM throughputs, one
+   ``{"topk_sim": ..., "mesh": ...}`` line, one ``{"experiments": ...}``
+   line, one ``{"kernels": [...]}`` JSON line (all nine kernels), then
+   the result line ``{"ok": true, "device": {...}}`` last.
 
 Any failed phase exits non-zero before the result line.
 
@@ -182,6 +199,7 @@ ATTN_CASES = (
     (2, 130, 130, 4, 4, 96, "bfloat16", True, 16),
 )
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py:32
+ATTN_F32_TIMED = (0, 2)      # (a) and (c) are also timed in float32
 ATTN_TPU_KERNEL = "src/repro/kernels/flash_attention.py:76"
 # the serving phase: qwen2-0.5b at full width
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 1024, 32
@@ -275,6 +293,17 @@ DENSE_FORM_TURNS = 32
 DENSE_FORM_MIN_RATIO = 0.95
 # exact mode against sim where the two are not bit for bit (ROADMAP C)
 EXACT_FALLBACK_RTOL = 1e-6
+# the experiments phase: the paper's claims (the seven mains of
+# repro_torch.experiments) on the card.  fig3 and table2 run at the
+# reference's full setting (quick=False); if the phase takes longer than
+# EXPERIMENTS_BUDGET_S they run at quick=True as well.  Card against CPU:
+# one trajectory's final loss within LOSS_RTOL relative (PERF.md §2), and
+# fig3c's four divergences on the same grads within DIV_RTOL of the
+# largest of the four
+EXPERIMENTS_BUDGET_S = 180.0
+DIV_RTOL = 1e-5
+SPS_SPEC = (8, 2, 16, 4)         # two_level(8, 2, 16, 4)
+SPS_T, SPS_REPS = 256, 3
 TPU_KERNEL = "src/repro/kernels/comms.py"
 SOURCE = "src/repro_torch/kernels/csrc/{}.cu"
 
@@ -1062,17 +1091,80 @@ def visible_pairs(sq: int, sk: int, causal: bool, window) -> int:
     return int(np.maximum(hi - lo + 1, 0).sum())
 
 
+def attention_timing(torch, kattn, ref, q, k, v, want, at):
+    """Kernel, plain version and one ``scaled_dot_product_attention`` call
+    at ``at``'s causal mask and window, on q, k, v in their own dtype,
+    beside the bounds.  bf16: 4*D tensor-core operations per visible pair
+    (the function's), 6*D and 8*D (two and three bf16 terms of P); float32:
+    4*D operations at the float32 rate outside the tensor cores (the
+    kernel runs SIMT, and TF32 is off for the library call too)."""
+    import torch.nn.functional as F
+    b, sq, sk, hq, hk, d, _, causal, window = at
+    dtype = str(q.dtype).split(".")[-1]
+    tol = ATTN_TOL[dtype]
+    pairs = visible_pairs(sq, sk, causal, window)
+    flops = 4 * b * hq * d * pairs
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    rate = BF16_OPS_PER_S if dtype == "bfloat16" else F32_OPS_PER_S
+    b_ms, b_by = bound_ms(nbytes, flops, rate)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    if window is None or window >= sk:
+        def library():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)
+    else:
+        pos = torch.arange(sq, device="cuda")
+        gap = pos[:, None] - pos[None, :]
+        mask = (gap >= 0) & (gap < window)
+
+        def library():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    out = kattn.flash_attention(q, k, v, causal=causal, window=window)
+    err = float((out.float() - want.float()).abs().max())
+    check(bool(torch.isfinite(out).all()) and bool(torch.allclose(
+        out.float(), want.float(), atol=tol, rtol=tol)),
+          f"flash_attention differs from its plain version at {at} in "
+          f"{dtype}: max |diff| {err}")
+    lib_err = float((library().transpose(1, 2).float()
+                     - want.float()).abs().max())
+    check(lib_err <= tol, f"the library call computes another "
+          f"function at {at} in {dtype}: max |diff| {lib_err}")
+    t = {"shape": list(at[:6]) + [dtype] + list(at[7:]),
+         "visible_pairs": pairs, "flops": flops,
+         "bytes": nbytes, "bound_ms": b_ms, "bound_by": b_by,
+         "max_abs_err": err, "library_max_abs_err": lib_err,
+         "ms": time_ms(torch, lambda: kattn.flash_attention(
+             q, k, v, causal=causal, window=window), 5),
+         "plain_ms": time_ms(torch, lambda: ref.attention_ref(
+             q, k, v, causal=causal, window=window), 2, reps=10),
+         "library_ms": time_ms(torch, library, 5)}
+    extra = ""
+    if dtype == "bfloat16":
+        t["bound_6d_ms"] = bound_ms(nbytes, flops * 3 // 2, rate)[0]
+        t["bound_8d_ms"] = bound_ms(nbytes, flops * 2, rate)[0]
+        t["f32_core_ms"] = flops / F32_OPS_PER_S * 1e3
+        extra = (f", {t['bound_6d_ms']:.5f} ms at 6*D, "
+                 f"{t['bound_8d_ms']:.5f} ms at 8*D, f32 CUDA-core ceiling "
+                 f"{t['f32_core_ms']:.5f} ms")
+    print(f"flash_attention {t['shape']}: kernel {t['ms']:.5f} ms, plain "
+          f"{t['plain_ms']:.5f} ms, library {t['library_ms']:.5f} ms, bound "
+          f"{b_ms:.5f} ms at 4*D ({b_by}){extra}", flush=True)
+    return t
+
+
 def attention_kernel_phase(torch, kattn, ref):
     """``flash_attention`` against ``attention_ref`` on the card at
     ATTN_CASES; timings at (a), (b) and (c), each beside one
     ``scaled_dot_product_attention`` call of the same function (causal;
     (b)'s window as a boolean mask built outside the timed region) and the
     bounds at 4*D tensor-core operations per visible pair (the function's),
-    6*D (P split into two bf16 terms) and 8*D (the kernel's three terms).
-    Returns the kernel's record."""
-    import torch.nn.functional as F
+    6*D (P split into two bf16 terms) and 8*D (the kernel's three terms);
+    (a) and (c) also in float32 (the SIMT kernel) beside one float32 call
+    and the float32 bound (``attention_timing``).  Returns the kernel's
+    record."""
     gen = torch.Generator(device="cuda").manual_seed(2)
-    rec = {"max_abs_err": 0.0, "timed": []}
+    rec = {"max_abs_err": 0.0, "timed": [], "timed_f32": []}
     for i, (b, sq, sk, hq, hk, d, dtype, causal, window) in enumerate(
             ATTN_CASES):
         dt = getattr(torch, dtype)
@@ -1096,45 +1188,15 @@ def attention_kernel_phase(torch, kattn, ref):
         print(f"flash_attention {at}: max |kernel - plain| {err!r}",
               flush=True)
         if i < 3:
-            pairs = visible_pairs(sq, sk, causal, window)
-            flops = 4 * b * hq * d * pairs
-            nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-            b_ms, b_by = bound_ms(nbytes, flops, BF16_OPS_PER_S)
-            b6_ms, _ = bound_ms(nbytes, flops * 3 // 2, BF16_OPS_PER_S)
-            b8_ms, _ = bound_ms(nbytes, flops * 2, BF16_OPS_PER_S)
-            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            if window is None or window >= sk:
-                def library():
-                    return F.scaled_dot_product_attention(
-                        qt, kt, vt, is_causal=True, enable_gqa=True)
-            else:
-                pos = torch.arange(sq, device="cuda")
-                gap = pos[:, None] - pos[None, :]
-                mask = (gap >= 0) & (gap < window)
-
-                def library():
-                    return F.scaled_dot_product_attention(
-                        qt, kt, vt, attn_mask=mask, enable_gqa=True)
-            lib_err = float((library().transpose(1, 2).float()
-                             - want.float()).abs().max())
-            check(lib_err <= tol, f"the library call computes another "
-                  f"function at {at}: max |diff| {lib_err}")
-            t = {"shape": list(at), "visible_pairs": pairs, "flops": flops,
-                 "bytes": nbytes, "bound_ms": b_ms, "bound_by": b_by,
-                 "bound_6d_ms": b6_ms, "bound_8d_ms": b8_ms,
-                 "f32_core_ms": flops / F32_OPS_PER_S * 1e3,
-                 "ms": time_ms(torch, lambda: kattn.flash_attention(
-                     q, k, v, causal=causal, window=window), 5),
-                 "plain_ms": time_ms(torch, lambda: ref.attention_ref(
-                     q, k, v, causal=causal, window=window), 2, reps=10),
-                 "library_ms": time_ms(torch, library, 5)}
+            t = attention_timing(torch, kattn, ref, q, k, v, want, at)
             rec["timed"].append(t)
-            print(f"flash_attention {at}: kernel {t['ms']:.5f} ms, plain "
-                  f"{t['plain_ms']:.5f} ms, library {t['library_ms']:.5f} "
-                  f"ms, bound {b_ms:.5f} ms at 4*D ({b_by}), {b6_ms:.5f} ms "
-                  f"at 6*D, {b8_ms:.5f} ms at 8*D, f32 CUDA-core ceiling "
-                  f"{t['f32_core_ms']:.5f} ms",
-                  flush=True)
+            if i in ATTN_F32_TIMED:
+                qf, kf, vf = (x.float() for x in (q, k, v))
+                wf = ref.attention_ref(qf, kf, vf, causal=causal,
+                                       window=window)
+                rec["timed_f32"].append(attention_timing(
+                    torch, kattn, ref, qf, kf, vf, wf, at))
+                del qf, kf, vf, wf
         del q, k, v, out, want
         torch.cuda.empty_cache()
     return rec
@@ -1614,6 +1676,135 @@ def ssm_serving_phase(torch, kern, kattn, kssd, krg, ref):
     return out
 
 
+def experiments_phase(torch, counted):
+    """The paper's claims on the card: every main of
+    ``repro_torch.experiments`` with its reference's asserts unchanged
+    (fig3 and table2 at quick=False, fig3c, fig_e4 and fig_e8 at
+    quick=True, table1 and plan_deployment on the host), one JSON line per
+    main with its setting, result and wall seconds; table2's model time to
+    75% (the paper's Table E.1 communication model) beside the card's own
+    training seconds to the same step; ``steps_per_sec`` of
+    ``two_level(8, 2, 16, 4)`` per step and through ``run_rounds`` (median
+    of SPS_REPS); fig3's hsgd_N2 trajectory (seed 0) and fig3c's
+    divergences, card against CPU.  ``counted`` are the kernel modules
+    whose launch counts are read: this path runs no codec, so no kernel
+    may launch.  Returns the phase's record."""
+    from repro_torch.core import make_topology, two_level
+    from repro_torch.core.divergence import all_divergences
+    from repro_torch.experiments import (common, fig3_sandwich,
+                                         fig3c_grouping, fig_e4_participation,
+                                         fig_e8_multilevel, plan_deployment,
+                                         table1_bounds, table2_time_to_acc)
+    t_phase = time.perf_counter()
+    for mod in counted:
+        mod.reset_launch_counts()
+    rec = {"mains": []}
+
+    def run_main(name, fn, setting, device, why=None):
+        t0 = time.perf_counter()
+        try:
+            result = fn()
+        except AssertionError as e:
+            raise SmokeFailure(f"{name} ({setting}): the claim failed on "
+                               f"{device}") from e
+        line = {"experiment": name, "setting": setting, "device": device,
+                "wall_s": time.perf_counter() - t0, "result": result}
+        if why:
+            line["why"] = why
+        print(json.dumps(line), flush=True)
+        rec["mains"].append(line)
+        return result
+
+    def live(quick):
+        return "quick=True" if quick else "quick=False (full)"
+
+    run_main("fig3_sandwich",
+                         lambda: fig3_sandwich.main(False, "cuda"),
+                         live(False), "cuda")
+    rows = run_main("table2_time_to_acc",
+                    lambda: table2_time_to_acc.main(False, "cuda"),
+                    live(False), "cuda")
+    for name, mod in (("fig3c_grouping", fig3c_grouping),
+                      ("fig_e4_participation", fig_e4_participation),
+                      ("fig_e8_multilevel", fig_e8_multilevel)):
+        run_main(name, lambda: mod.main(True, "cuda"), live(True), "cuda")
+    run_main("table1_bounds", table1_bounds.main, "quick=True", "host")
+    run_main("plan_deployment", plan_deployment.main, "the example's",
+             "host")
+    rec["table2"] = [{
+        "config": r["config"], "final_acc": r["final_acc"],
+        "model_ms_to_75%": r["time_to_75%_ms"],
+        "card_s_to_75%": r["device_s_to_75%"],
+        "card_s_at_T": r["device_s_at_T"]} for r in rows]
+    for r in rec["table2"]:
+        print(f"table2 {r['config']}: paper's Table E.1 communication "
+              f"model {r['model_ms_to_75%']} ms to 75%; this card's "
+              f"training wall {r['card_s_to_75%']} s to the same step "
+              f"({r['card_s_at_T']} s for all 300 steps)", flush=True)
+    check(all(r["card_s_to_75%"] is not None for r in rec["table2"]),
+          "table2: a configuration never reached 75% on the card")
+
+    ds, model = common.make_world(8)
+    spec = two_level(*SPS_SPEC)
+    sps = {}
+    for label, use_rounds in (("step", False), ("run_rounds", True)):
+        runs = [common.steps_per_sec(ds, model, spec, T=SPS_T,
+                                     use_rounds=use_rounds, device="cuda")
+                for _ in range(SPS_REPS)]
+        sps[label] = {"median": statistics.median(runs), "runs": runs}
+        print(f"steps_per_sec two_level{SPS_SPEC} T={SPS_T} {label}: "
+              f"median {sps[label]['median']!r} of {runs}", flush=True)
+    rec["steps_per_sec"] = sps
+
+    topo = lambda: make_topology("two_level", n=8, N=2, G=16, I=4)
+    T = 240
+    card = common.trajectory(ds, model, topo(), T, seed=0, device="cuda")
+    cpu = common.trajectory(ds, model, topo(), T, seed=0, device="cpu")
+    rel = abs(card[-1]["loss"] - cpu[-1]["loss"]) / abs(cpu[-1]["loss"])
+    print(f"fig3 hsgd_N2 seed 0, T={T}: final loss {card[-1]['loss']!r} "
+          f"on cuda, {cpu[-1]['loss']!r} on cpu, relative difference "
+          f"{rel!r}", flush=True)
+    check(math.isfinite(card[-1]["loss"]) and rel <= LOSS_RTOL,
+          f"fig3 hsgd_N2: card vs CPU final loss differ by {rel} relative "
+          f"> {LOSS_RTOL}")
+    rec["trajectory_card_vs_cpu"] = {
+        "loss_cuda": card[-1]["loss"], "loss_cpu": cpu[-1]["loss"],
+        "acc_cuda": card[-1]["acc"], "acc_cpu": cpu[-1]["acc"],
+        "rel": rel}
+
+    ds4, model4 = common.make_world(8, num_classes=4)
+    grads, gs, on_cpu = fig3c_grouping.measured(ds4, model4,
+                                                torch.device("cpu"))
+    gcard = grads.to("cuda")
+    divs = {}
+    for k, g in gs.items():
+        on_card = all_divergences(gcard, g)
+        err = max(abs(on_card[m] - on_cpu[k][m]) for m in on_card)
+        scale = max(abs(v) for v in on_cpu[k].values())
+        divs[k] = {"cuda": on_card, "cpu": on_cpu[k], "rel": err / scale}
+        print(f"fig3c divergences, {k} grouping: cuda {on_card} cpu "
+              f"{on_cpu[k]}, max |diff| / max |cpu| {err / scale!r}",
+              flush=True)
+        check(err <= DIV_RTOL * scale,
+              f"fig3c {k}: card vs CPU divergences differ by {err / scale} "
+              f"of the largest > {DIV_RTOL}")
+    rec["divergences_card_vs_cpu"] = divs
+
+    launched = {k: v for mod in counted for k, v in mod.launch_counts.items()
+                if v}
+    check(not launched, f"the experiments launched kernels: {launched}")
+    rec["wall_s"] = time.perf_counter() - t_phase
+    if rec["wall_s"] > EXPERIMENTS_BUDGET_S:
+        why = (f"the phase took {rec['wall_s']:.1f} s > "
+               f"{EXPERIMENTS_BUDGET_S} s at the full setting")
+        run_main("fig3_sandwich", lambda: fig3_sandwich.main(True, "cuda"),
+                 live(True), "cuda", why)
+        run_main("table2_time_to_acc",
+                 lambda: table2_time_to_acc.main(True, "cuda"), live(True),
+                 "cuda", why)
+    return rec
+
+
 def profile_phase(torch, kattn):
     """The serving profile (``--profile``); returns its numbers."""
     import dataclasses
@@ -1742,6 +1933,7 @@ def main() -> int:
         ssm = ssm_kernel_phase(torch, kssd, krg, ref)
         ssm_fwd = ssm_forward_phase(torch, kern, kattn, kssd, krg, ref)
         ssm_served = ssm_serving_phase(torch, kern, kattn, kssd, krg, ref)
+        experiments = experiments_phase(torch, (kern, kattn, kssd, krg))
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1803,6 +1995,7 @@ def main() -> int:
         "bound_6d_ms": a["bound_6d_ms"], "bound_8d_ms": a["bound_8d_ms"],
         "f32_core_ms": a["f32_core_ms"],
         "shape": a["shape"], "shape_b": b, "shape_c": c,
+        "float32": dict(zip("ac", attn["timed_f32"])),
         "serving": served["throughput"],
     })
     for name, replaces, timed in (
@@ -1824,6 +2017,8 @@ def main() -> int:
     print(json.dumps({"ssm": {"loss": ssm_fwd["throughput"],
                               "serving": ssm_served["throughput"]}}))
     print(json.dumps({"topk_sim": topk_sim, "mesh": mesh}))
+    print(json.dumps({"experiments": {k: v for k, v in experiments.items()
+                                      if k != "mains"}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

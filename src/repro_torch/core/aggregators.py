@@ -168,6 +168,10 @@ def make_aggregator(spec: AggregatorLike = None, *,
     return AGGREGATORS[name](**kwargs)
 
 
+def register_aggregator(name: str, cls) -> None:
+    AGGREGATORS[name.lower()] = cls
+
+
 def denominator_floor(acc: torch.dtype, device=None) -> torch.Tensor:
     """Positive floor for weighted-mean denominators: the accumulation
     dtype's smallest positive normal, so an all-masked group divides to an

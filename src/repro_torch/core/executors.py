@@ -419,3 +419,7 @@ def make_executor(spec: ExecutorLike = None, **kwargs) -> Executor:
         raise KeyError(f"unknown executor {spec!r}; "
                        f"known: {sorted(EXECUTORS)}")
     return EXECUTORS[name](**kwargs)
+
+
+def register_executor(name: str, cls) -> None:
+    EXECUTORS[name.lower()] = cls

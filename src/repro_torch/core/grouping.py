@@ -1,11 +1,15 @@
 """Two-level worker groupings (paper §3, §4.3).
 
 Numpy-only: the part of ``repro.core.grouping`` the H-SGD experiments
-need (``Grouping``, ``contiguous``, ``random_grouping`` and the Fig. 3c
-and Appendix E constructions ``group_iid``, ``group_noniid``,
-``diversity_grouping``, ``sample_participation``), copied and held equal
-to it by the tests.  A ``Grouping`` is an explicit assignment of n workers
-to N groups (possibly non-uniform, as Theorem 1 allows).
+need (``Grouping`` with its mixing matrices, ``contiguous``,
+``random_grouping`` and the Fig. 3c and Appendix E constructions
+``group_iid``, ``group_noniid``, ``diversity_grouping``,
+``sample_participation``), copied and held equal to it by the tests.  A
+``Grouping`` is an explicit assignment of n workers to N groups (possibly
+non-uniform, as Theorem 1 allows).  The paper's aggregation semantics
+(Algorithm 1) as mixing matrices:
+  local  A_loc[j, j'] = 1/n_i   if j, j' in the same group V_i
+  global A_glob[j, j'] = (1/N) * 1/n_{i(j')}   (unweighted mean of group means)
 """
 from __future__ import annotations
 
@@ -25,6 +29,19 @@ class Grouping:
         ids = np.unique(a)
         assert (ids == np.arange(len(ids))).all(), "group ids must be dense"
 
+    @classmethod
+    def from_labels(cls, labels) -> "Grouping":
+        """Grouping from arbitrary per-worker labels (dense-relabelled in
+        order of first appearance)."""
+        labels = np.asarray(labels)
+        assert labels.ndim == 1 and len(labels) > 0, labels.shape
+        _, ids = np.unique(labels, return_inverse=True)
+        first = {}
+        dense = np.empty(len(labels), np.int64)
+        for j, g in enumerate(ids):
+            dense[j] = first.setdefault(int(g), len(first))
+        return cls(tuple(dense))
+
     @property
     def n(self) -> int:
         return len(self.assignment)
@@ -40,10 +57,27 @@ class Grouping:
     def members(self, i: int) -> np.ndarray:
         return np.nonzero(np.asarray(self.assignment) == i)[0]
 
+    # -- mixing matrices (paper Appendix A.1) --------------------------------
+    def local_matrix(self) -> np.ndarray:
+        a = np.asarray(self.assignment)
+        same = a[:, None] == a[None, :]
+        return same / self.sizes[a][None, :].T  # row j: 1/n_{i(j)} over V_{i(j)}
+
+    def global_matrix(self) -> np.ndarray:
+        a = np.asarray(self.assignment)
+        w = 1.0 / (self.N * self.sizes[a])     # each worker j' weighted 1/(N n_i(j'))
+        return np.tile(w[None, :], (self.n, 1))
+
     def onehot(self) -> np.ndarray:
         """(N, n) membership indicator."""
         a = np.asarray(self.assignment)
         return (np.arange(self.N)[:, None] == a[None, :]).astype(np.float64)
+
+    def size_weights(self) -> np.ndarray:
+        """(n,) weights proportional to each worker's group size inverse, so a
+        weighted GLOBAL mean over workers equals the unweighted mean of group
+        means (pairs with ``WeightedAggregator`` for FedAvg-style runs)."""
+        return 1.0 / (self.N * self.sizes[np.asarray(self.assignment)])
 
 
 def contiguous(n: int, N: int) -> Grouping:

@@ -288,6 +288,11 @@ class HSGD:
         return tree_map(lambda x: x.mean(0, dtype=torch.float32).to(x.dtype),
                         self.executor.gather(state.params))
 
+    def worker_params(self, state: HSGDState, j: int):
+        """Worker j's params (under the mesh executor, from the rows every
+        rank gathers, as in :meth:`mean_params`)."""
+        return tree_map(lambda x: x[j], self.executor.gather(state.params))
+
 
 def _moments_only(opt_state):
     """The optimizer moments a sync aggregates; ``step`` never rides it."""
@@ -298,3 +303,24 @@ def _merge_moments(opt_state, agg):
     out = dict(opt_state)
     out.update(agg)
     return out
+
+
+# ---------------------------------------------------------------------------
+# convenience: run T steps with a data source
+# ---------------------------------------------------------------------------
+def run(engine: HSGD, state: HSGDState, batch_fn: Callable[[int], Any],
+        T: int, eval_every: int = 0,
+        eval_fn: Optional[Callable[[HSGDState, int], Dict]] = None):
+    """batch_fn(t) -> batch with leading worker axis. Returns (state, history).
+
+    History gets one record per step with the training metrics; ``eval_fn``
+    results are merged into the matching step's record every
+    ``eval_every`` steps."""
+    history = []
+    for t in range(T):
+        state, metrics = engine.step(state, batch_fn(t))
+        rec = {"t": t + 1, **{k: float(v) for k, v in metrics.items()}}
+        if eval_every and (t + 1) % eval_every == 0 and eval_fn is not None:
+            rec.update(eval_fn(state, t))
+        history.append(rec)
+    return state, history

@@ -114,6 +114,9 @@ class FederatedDataset:
                 f"from them; use a larger dataset or a less extreme split")
         return self
 
+    def dominant_labels(self) -> List[int]:
+        return [int(np.bincount(self.y[p]).argmax()) for p in self.parts]
+
     def batch(self, step: int, batch_size: int) -> Dict[str, np.ndarray]:
         """IID minibatch per worker from that worker's shard (paper's SGD)."""
         xs, ys = [], []
@@ -124,6 +127,13 @@ class FederatedDataset:
             xs.append(self.x[part[take]])
             ys.append(self.y[part[take]])
         return {"x": np.stack(xs), "y": np.stack(ys)}
+
+    def full_per_worker(self, cap: int = 512) -> Dict[str, np.ndarray]:
+        """Equal-size per-worker eval batches (for divergence measurement)."""
+        m = min(cap, min(len(p) for p in self.parts))
+        xs = np.stack([self.x[p[:m]] for p in self.parts])
+        ys = np.stack([self.y[p[:m]] for p in self.parts])
+        return {"x": xs, "y": ys}
 
     def global_batch(self, cap: int = 2048) -> Dict[str, np.ndarray]:
         idx = np.arange(min(cap, len(self.y)))

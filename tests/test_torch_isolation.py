@@ -35,7 +35,7 @@ def _imported_modules(path: Path):
 
 def test_port_files_import_no_jax_and_no_reference():
     files = _port_files()
-    assert len(files) >= 45
+    assert len(files) >= 62
     bad = [(str(p.relative_to(ROOT)), m) for p in files
            for m in _imported_modules(p)
            if m.split(".")[0] in FORBIDDEN]
@@ -58,6 +58,12 @@ def test_importing_the_port_loads_no_jax():
             "import repro_torch.kernels.rglru_scan\n"
             "import repro_torch.models.transformer, repro_torch.serving\n"
             "import repro_torch.launch.serve, repro_torch.launch.mesh\n"
+            "import repro_torch.core.divergence, repro_torch.core.theory\n"
+            "import repro_torch.core.planner, repro_torch.experiments\n"
+            "import repro_torch.experiments.common\n"
+            "from repro_torch.experiments import (fig3_sandwich,\n"
+            "    table2_time_to_acc, fig3c_grouping, fig_e4_participation,\n"
+            "    fig_e8_multilevel, table1_bounds, plan_deployment)\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")
@@ -75,8 +81,12 @@ def no_cuda():
 
 
 def test_entry_points_refuse_missing_cuda(no_cuda):
-    from repro_torch.core import HSGD, make_topology
+    from repro_torch.core import HSGD, local_sgd, make_topology
     from repro_torch.device import resolve_device
+    from repro_torch.experiments import (common, fig3_sandwich,
+                                         fig3c_grouping, fig_e4_participation,
+                                         fig_e8_multilevel,
+                                         table2_time_to_acc)
     from repro_torch.launch.mesh import launch
     from repro_torch.models import (SimpleConfig, SimpleModel,
                                     params_from_numpy, params_to_numpy)
@@ -88,6 +98,7 @@ def test_entry_points_refuse_missing_cuda(no_cuda):
                   make_topology("two_level", n=4, N=2, G=4, I=2))
     gen = torch.Generator().manual_seed(0)
     params = model.init(gen, device="cpu")
+    world = common.make_world(8)
     calls = [
         lambda: resolve_device(),
         lambda: model.init(gen),
@@ -97,6 +108,17 @@ def test_entry_points_refuse_missing_cuda(no_cuda):
         lambda: engine.init_from_params(params),
         lambda: engine.init_from_params(params, device="cuda"),
         lambda: launch(print, 2),
+        lambda: fig3_sandwich.main(),
+        lambda: table2_time_to_acc.main(),
+        lambda: fig3c_grouping.main(),
+        lambda: fig_e4_participation.main(),
+        lambda: fig_e8_multilevel.main(),
+        lambda: fig_e4_participation.run(*world, local_sgd(8, 4), 1,
+                                         0),
+        lambda: common.trajectory(*world, make_topology(
+            local_sgd(8, 4)), 1),
+        lambda: common.steps_per_sec(*world, local_sgd(8, 4), T=1),
+        lambda: fig3c_grouping.measured(*world, "cuda"),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="cuda"):
