@@ -10,8 +10,9 @@ or of the JAX package.  It
 2. builds the six CUDA sources from ``src/repro_torch/kernels/csrc`` into
    ``build/kernels/``, one ``nvcc`` per source, all started together, and
    prints what ``ptxas`` reports; counts instructions in the SASS
-   (``cuobjdump``): flash_attention's library must hold HGMMA (wgmma) and
-   UTMALDG (TMA loads), ssd_scan's HMMA (mma.sync) and neither of those,
+   (``cuobjdump``, per function): every function of flash_attention's
+   library but its split pre-pass must hold HGMMA (wgmma) and UTMALDG
+   (TMA loads), ssd_scan's HMMA (mma.sync) and neither of those,
    topk_reduce's no float atomic and no compare-and-swap on global
    memory;
 3. kernel phase: holds every kernel bitwise against its plain PyTorch
@@ -80,8 +81,14 @@ or of the JAX package.  It
    gemma3 local-layer shape (b) and recurrentgemma-2b's attention (c),
    beside the bounds at 4*D, 6*D and 8*D tensor-core operations per pair
    (the function's, a two-term and the kernel's three-term split of P);
-   (a) and (c) also in float32 (the SIMT kernel) beside one float32 call
-   and the float32 bound (4*D operations at the float32 rate);
+   (a), (b) and (c) also in float32, on inputs drawn in float32, beside
+   one float32 call, the float32 ceiling (4*D operations at the CUDA
+   cores' float32 rate) and the kernel's bound (the split pre-pass's
+   bytes, then 24*D tensor-core operations for its exact splits), with
+   the device time of the pre-pass and of the attention launch; every
+   float32 case also against the same attention in float64, within
+   ATTN_F32_ULPS x 2^-24 of max |o|, a limit that the design without its
+   lo planes must miss;
 6. serving phase: qwen2-0.5b at full width (24 layers, d_model 896) with
    ``use_kernels=True``, random weights from a seeded generator, through
    ``DecodeEngine.generate``: 8 requests, prompts of 1024 random tokens,
@@ -178,6 +185,11 @@ SIGN_CASES = (((8, 2120), SIGN_BLOCK), ((8, 2**24 + 77), SIGN_BLOCK),
               ((8, 2120), 64), ((8, 2120), 1000), ((8, 2120), 24))
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory
 F32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+# the float32 attention kernel's tensor-core operations per visible pair
+# (six bf16 plane products each for Q.K^T and P.V) and its split
+# pre-pass's bytes per element of q, k and v (read 4, write 6)
+F32_SPLIT_OPS_PER_D = 24
+F32_SPLIT_BYTES = 10
 BF16_OPS_PER_S = 989e12      # H100 SXM bf16 tensor cores, dense
 # flash attention cases: (B, Sq, Sk, Hq, Hk, D, dtype, causal, window);
 # (a), (b) and (c), the first three, are timed
@@ -197,9 +209,28 @@ ATTN_CASES = (
     (1, 200, 200, 4, 2, 128, "float32", True, 512),        # window > S
     (2, 130, 130, 4, 4, 96, "float32", True, None),        # Hq == Hk
     (2, 130, 130, 4, 4, 96, "bfloat16", True, 16),
+    # rows of widely spread magnitude, float32 (see ATTN_ROWS)
+    (2, 300, 300, 4, 2, 64, "float32", True, None, "rows"),
+    (1, 256, 256, 4, 2, 256, "float32", True, 100, "rows"),
 )
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py:32
-ATTN_F32_TIMED = (0, 2)      # (a) and (c) are also timed in float32
+# a "rows" case scales q, k and v by logspace(*ATTN_ROWS) along the
+# sequence: 3.5 decades, so the bf16 planes' exponents vary from row to
+# row.  Up to 10 (the codecs' range) the logits reach about 100, where
+# float32 attention_ref itself lies several times the tolerance away from
+# the same attention in float64, so no float32 kernel could be held to
+# 2e-5 there; at these scales it lies within it
+# (tests/test_torch_attention.py::test_f32_design_on_spread_rows).
+ATTN_ROWS = (-3.0, 0.5)
+# every float32 case is also held to the same attention in float64: max
+# |o - o64| within ATTN_F32_ULPS * 2^-24 * max |o64|, and a control must
+# miss that limit there: the float64 attention of the kernel's design
+# without its lo planes (q, k, v and P cut to hi + mid), which 2e-5 alone
+# would let through (``attention_f32_accuracy``).  Measured on an H100
+# over ATTN_CASES (PERF.md §6): the kernel 2.1-56.2 (its wgmma float32
+# sums, likely truncating), attention_ref 2.3-21.2, float32 SDPA 5.6-12.1,
+# the control 306-1007.
+ATTN_F32_ULPS = 128
 ATTN_TPU_KERNEL = "src/repro/kernels/flash_attention.py:76"
 # the serving phase: qwen2-0.5b at full width
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 1024, 32
@@ -372,32 +403,45 @@ def bound_ms(n_bytes: int, n_ops: int, ops_per_s: float = F32_OPS_PER_S):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+SASS_KEYS = ("HGMMA", "HMMA", "UTMALDG", "global float atomics",
+             "global CAS")
+
+
 def sass_census(lib: Path) -> dict:
     """Counts of the SASS instructions this script holds the redesigned
     kernels to, in one built library (``cuobjdump -sass``): warpgroup
     tensor-core products (HGMMA), warp-level ones (HMMA, ``mma.sync``), TMA
     loads (UTMALDG), and float atomics or compare-and-swaps on global
-    memory."""
+    memory; over the library, and under ``"functions"`` per kernel
+    function (by its mangled name)."""
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                          text=True, timeout=300)
     check(out.returncode == 0, f"cuobjdump failed on {lib}: {out.stderr}")
-    count = {"HGMMA": 0, "HMMA": 0, "UTMALDG": 0, "global float atomics": 0,
-             "global CAS": 0}
+    count = dict.fromkeys(SASS_KEYS, 0)
+    functions, fn = {}, count
     for line in out.stdout.splitlines():
+        # "Function : <mangled name>" opens a kernel's listing
+        if line.strip().startswith("Function :"):
+            fn = functions.setdefault(line.split(":", 1)[1].strip(),
+                                      dict.fromkeys(SASS_KEYS, 0))
+            continue
         # "/*0070*/  [@P0] OPCODE.MODIFIERS operands ;  /* encoding */"
         words = line.split("*/", 1)[1].split() if "*/" in line else []
         if words and words[0].startswith("@"):
             words = words[1:]
         op = words[0] if words else ""
-        count["HGMMA"] += op.startswith("HGMMA")
-        count["HMMA"] += op.startswith("HMMA")
-        count["UTMALDG"] += op.startswith("UTMALDG")
         is_global = op.startswith(("RED", "ATOMG", "ATOM."))
-        count["global float atomics"] += is_global and "F32" in op
-        count["global CAS"] += is_global and "CAS" in op
-    return count
+        for key, hit in (("HGMMA", op.startswith("HGMMA")),
+                         ("HMMA", op.startswith("HMMA")),
+                         ("UTMALDG", op.startswith("UTMALDG")),
+                         ("global float atomics", is_global and "F32" in op),
+                         ("global CAS", is_global and "CAS" in op)):
+            count[key] += hit
+            if fn is not count:
+                fn[key] += hit
+    return {**count, "functions": functions}
 
 
 def kernel_phase(torch, kern, ref):
@@ -1096,17 +1140,21 @@ def attention_timing(torch, kattn, ref, q, k, v, want, at):
     at ``at``'s causal mask and window, on q, k, v in their own dtype,
     beside the bounds.  bf16: 4*D tensor-core operations per visible pair
     (the function's), 6*D and 8*D (two and three bf16 terms of P); float32:
-    4*D operations at the float32 rate outside the tensor cores (the
-    kernel runs SIMT, and TF32 is off for the library call too)."""
+    the kernel's bound, the split pre-pass's bytes plus the larger of the
+    attention launch's bytes (the planes read, o written) and its 24*D
+    tensor-core operations (six bf16 plane products each for Q.K^T and
+    P.V), with the device ms of each of its two launches (``stage_ms``).
+    Both also give ``f32_core_ms``, 4*D operations at the float32 rate
+    outside the tensor cores, the ceiling of a kernel on the CUDA cores
+    (TF32 is off for the library call too).  Returns the record and the
+    library call's output."""
     import torch.nn.functional as F
-    b, sq, sk, hq, hk, d, _, causal, window = at
+    b, sq, sk, hq, hk, d, _, causal, window = at[:9]
     dtype = str(q.dtype).split(".")[-1]
     tol = ATTN_TOL[dtype]
     pairs = visible_pairs(sq, sk, causal, window)
     flops = 4 * b * hq * d * pairs
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    rate = BF16_OPS_PER_S if dtype == "bfloat16" else F32_OPS_PER_S
-    b_ms, b_by = bound_ms(nbytes, flops, rate)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     if window is None or window >= sk:
         def library():
@@ -1120,37 +1168,117 @@ def attention_timing(torch, kattn, ref, q, k, v, want, at):
         def library():
             return F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask, enable_gqa=True)
-    out = kattn.flash_attention(q, k, v, causal=causal, window=window)
+
+    def kernel():
+        return kattn.flash_attention(q, k, v, causal=causal, window=window)
+
+    out = kernel()
     err = float((out.float() - want.float()).abs().max())
     check(bool(torch.isfinite(out).all()) and bool(torch.allclose(
         out.float(), want.float(), atol=tol, rtol=tol)),
           f"flash_attention differs from its plain version at {at} in "
           f"{dtype}: max |diff| {err}")
-    lib_err = float((library().transpose(1, 2).float()
-                     - want.float()).abs().max())
+    lib_out = library().transpose(1, 2)
+    lib_err = float((lib_out.float() - want.float()).abs().max())
     check(lib_err <= tol, f"the library call computes another "
           f"function at {at} in {dtype}: max |diff| {lib_err}")
-    t = {"shape": list(at[:6]) + [dtype] + list(at[7:]),
-         "visible_pairs": pairs, "flops": flops,
-         "bytes": nbytes, "bound_ms": b_ms, "bound_by": b_by,
+    t = {"shape": list(at[:6]) + [dtype] + list(at[7:9]),
+         "visible_pairs": pairs, "flops": flops, "bytes": nbytes,
          "max_abs_err": err, "library_max_abs_err": lib_err,
-         "ms": time_ms(torch, lambda: kattn.flash_attention(
-             q, k, v, causal=causal, window=window), 5),
+         "ms": time_ms(torch, kernel, 5),
          "plain_ms": time_ms(torch, lambda: ref.attention_ref(
              q, k, v, causal=causal, window=window), 2, reps=10),
-         "library_ms": time_ms(torch, library, 5)}
-    extra = ""
+         "library_ms": time_ms(torch, library, 5),
+         "f32_core_ms": flops / F32_OPS_PER_S * 1e3}
     if dtype == "bfloat16":
-        t["bound_6d_ms"] = bound_ms(nbytes, flops * 3 // 2, rate)[0]
-        t["bound_8d_ms"] = bound_ms(nbytes, flops * 2, rate)[0]
-        t["f32_core_ms"] = flops / F32_OPS_PER_S * 1e3
-        extra = (f", {t['bound_6d_ms']:.5f} ms at 6*D, "
-                 f"{t['bound_8d_ms']:.5f} ms at 8*D, f32 CUDA-core ceiling "
-                 f"{t['f32_core_ms']:.5f} ms")
+        t["bound_ms"], t["bound_by"] = bound_ms(nbytes, flops,
+                                                BF16_OPS_PER_S)
+        t["bound_6d_ms"] = bound_ms(nbytes, flops * 3 // 2,
+                                    BF16_OPS_PER_S)[0]
+        t["bound_8d_ms"] = bound_ms(nbytes, flops * 2, BF16_OPS_PER_S)[0]
+        extra = (f" at 4*D, {t['bound_6d_ms']:.5f} ms at 6*D, "
+                 f"{t['bound_8d_ms']:.5f} ms at 8*D")
+    else:
+        elems = q.numel() + k.numel() + v.numel()
+        t["split_bound_ms"] = (F32_SPLIT_BYTES * elems / HBM_BYTES_PER_S
+                               * 1e3)
+        launch_ms, t["bound_by"] = bound_ms(
+            6 * elems + 4 * q.numel(), flops * F32_SPLIT_OPS_PER_D // 4,
+            BF16_OPS_PER_S)
+        t["bound_ms"] = t["split_bound_ms"] + launch_ms
+        t["launches_ms"] = stage_ms(torch, kernel)
+        extra = (f" (24*D on the tensor cores, {launch_ms:.5f}, after the "
+                 f"split pre-pass's bytes, {t['split_bound_ms']:.5f}); "
+                 f"device ms by launch {t['launches_ms']}")
     print(f"flash_attention {t['shape']}: kernel {t['ms']:.5f} ms, plain "
           f"{t['plain_ms']:.5f} ms, library {t['library_ms']:.5f} ms, bound "
-          f"{b_ms:.5f} ms at 4*D ({b_by}){extra}", flush=True)
-    return t
+          f"{t['bound_ms']:.5f} ms{extra} ({t['bound_by']}), f32 CUDA-core "
+          f"ceiling {t['f32_core_ms']:.5f} ms", flush=True)
+    return t, lib_out
+
+
+def attention_f64(torch, q, k, v, causal, window, drop_lo=False):
+    """Softmax attention of float32 q, k, v in float64, on their device.
+    With ``drop_lo``, the float32 kernel's design without its lo planes:
+    q, k, v and the probabilities P cut to hi + mid (their top 16
+    significand bits, as the kernel's truncation cuts them), then the
+    products exact: what a kernel that never read the lo planes would
+    compute, before its own float32 sums."""
+    def cut(x):
+        if not drop_lo:
+            return x.double()
+        x = x.float()
+        hi = (x.view(torch.int32) & -65536).view(torch.float32)
+        mid = ((x - hi).view(torch.int32) & -65536).view(torch.float32)
+        return (hi + mid).double()
+
+    n_rep = q.shape[2] // k.shape[2]
+    qd = cut(q)
+    kd = cut(k).repeat_interleave(n_rep, dim=2)
+    vd = cut(v).repeat_interleave(n_rep, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", qd, kd) / math.sqrt(q.shape[-1])
+    sq, sk = q.shape[1], k.shape[1]
+    pos_q = torch.arange(sq, device=q.device)[:, None]
+    pos_k = torch.arange(sk, device=q.device)[None, :]
+    seen = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        seen &= pos_k <= pos_q
+    if window is not None:
+        seen &= (pos_q - pos_k) < window
+    s = torch.where(seen, s, -math.inf)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    l = p.sum(-1, keepdim=True)
+    o = torch.einsum("bhqk,bkhd->bqhd", cut(p), vd)
+    return o / l.transpose(1, 2)
+
+
+def attention_f32_accuracy(torch, q, k, v, at, outs):
+    """Each float32 output in ``outs`` (name -> tensor), and the control
+    (``attention_f64`` with ``drop_lo``), against the same attention in
+    float64: max |x - o64| in units of 2^-24 * max |o64|."""
+    causal, window = at[7], at[8]
+    exact = attention_f64(torch, q, k, v, causal, window)
+    unit = 2.0**-24 * float(exact.abs().max())
+    ulps = {name: float((x.double() - exact).abs().max()) / unit
+            for name, x in outs.items()}
+    ulps["control"] = float((attention_f64(
+        torch, q, k, v, causal, window, drop_lo=True)
+        - exact).abs().max()) / unit
+    return ulps
+
+
+def attention_inputs(torch, gen, case):
+    """q, k, v of an ATTN_CASES entry, normal in float32 and then cast to
+    its dtype; a "rows" case scales every row (sequence position) of all
+    three by logspace(*ATTN_ROWS)."""
+    b, sq, sk, hq, hk, d, dtype, causal, window, *rows = case
+    out = []
+    for s, h in ((sq, hq), (sk, hk), (sk, hk)):
+        x = torch.randn((b, s, h, d), generator=gen, device="cuda")
+        if rows:
+            x *= torch.logspace(*ATTN_ROWS, s, device="cuda")[:, None, None]
+        out.append(x.to(getattr(torch, dtype)))
+    return out
 
 
 def attention_kernel_phase(torch, kattn, ref):
@@ -1158,24 +1286,38 @@ def attention_kernel_phase(torch, kattn, ref):
     ATTN_CASES; timings at (a), (b) and (c), each beside one
     ``scaled_dot_product_attention`` call of the same function (causal;
     (b)'s window as a boolean mask built outside the timed region) and the
-    bounds at 4*D tensor-core operations per visible pair (the function's),
-    6*D (P split into two bf16 terms) and 8*D (the kernel's three terms);
-    (a) and (c) also in float32 (the SIMT kernel) beside one float32 call
-    and the float32 bound (``attention_timing``).  Returns the kernel's
-    record."""
+    bounds (``attention_timing``); (a), (b) and (c) also in float32, on
+    inputs drawn in float32 (so their mid and lo planes are not zero).
+    Every float32 case is also held to float64 within ATTN_F32_ULPS, and
+    the control must miss that limit (``attention_f32_accuracy``).
+    Returns the kernel's record."""
     gen = torch.Generator(device="cuda").manual_seed(2)
-    rec = {"max_abs_err": 0.0, "timed": [], "timed_f32": []}
-    for i, (b, sq, sk, hq, hk, d, dtype, causal, window) in enumerate(
-            ATTN_CASES):
+    gen_f32 = torch.Generator(device="cuda").manual_seed(3)
+    rec = {"max_abs_err": 0.0, "max_abs_err_f32": 0.0, "timed": [],
+           "timed_f32": [], "f32_ulps": []}
+
+    def against_f64(q, k, v, at, outs):
+        ulps = attention_f32_accuracy(torch, q, k, v, at, outs)
+        rec["f32_ulps"].append({"case": list(at), **ulps})
+        print(f"flash_attention {at} float32 against float64, in 2^-24 of "
+              f"max |o|: {ulps}", flush=True)
+        check(ulps["kernel"] <= ATTN_F32_ULPS,
+              f"flash_attention float32 at {at}: {ulps['kernel']} x 2^-24 "
+              f"of max |o| from float64, over {ATTN_F32_ULPS}")
+        check(ulps["control"] > ATTN_F32_ULPS,
+              f"flash_attention float32 at {at}: the design without lo "
+              f"planes is {ulps['control']} x 2^-24 of max |o| from "
+              f"float64, within {ATTN_F32_ULPS}: the limit does not "
+              "separate the designs")
+
+    for i, at in enumerate(ATTN_CASES):
+        b, sq, sk, hq, hk, d, dtype, causal, window = at[:9]
         dt = getattr(torch, dtype)
-        q = torch.randn((b, sq, hq, d), generator=gen, device="cuda").to(dt)
-        k = torch.randn((b, sk, hk, d), generator=gen, device="cuda").to(dt)
-        v = torch.randn((b, sk, hk, d), generator=gen, device="cuda").to(dt)
+        q, k, v = attention_inputs(torch, gen, at)
         out = kattn.flash_attention(q, k, v, causal=causal, window=window)
         want = ref.attention_ref(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
         tol = ATTN_TOL[dtype]
-        at = ATTN_CASES[i]
         check(out.dtype == dt and out.shape == q.shape,
               f"flash_attention: wrong output {out.dtype} {tuple(out.shape)} "
               f"at {at}")
@@ -1187,18 +1329,30 @@ def attention_kernel_phase(torch, kattn, ref):
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
         print(f"flash_attention {at}: max |kernel - plain| {err!r}",
               flush=True)
+        if dtype == "float32":
+            rec["max_abs_err_f32"] = max(rec["max_abs_err_f32"], err)
+            against_f64(q, k, v, at, {"kernel": out, "plain": want})
         if i < 3:
-            t = attention_timing(torch, kattn, ref, q, k, v, want, at)
-            rec["timed"].append(t)
-            if i in ATTN_F32_TIMED:
-                qf, kf, vf = (x.float() for x in (q, k, v))
-                wf = ref.attention_ref(qf, kf, vf, causal=causal,
-                                       window=window)
-                rec["timed_f32"].append(attention_timing(
-                    torch, kattn, ref, qf, kf, vf, wf, at))
-                del qf, kf, vf, wf
+            rec["timed"].append(
+                attention_timing(torch, kattn, ref, q, k, v, want, at)[0])
         del q, k, v, out, want
         torch.cuda.empty_cache()
+        if i < 3:
+            at32 = at[:6] + ("float32",) + at[7:]
+            q, k, v = attention_inputs(torch, gen_f32, at32)
+            want = ref.attention_ref(q, k, v, causal=causal, window=window)
+            t, lib_out = attention_timing(torch, kattn, ref, q, k, v, want,
+                                          at32)
+            rec["timed_f32"].append(t)
+            rec["max_abs_err_f32"] = max(rec["max_abs_err_f32"],
+                                         t["max_abs_err"])
+            out = kattn.flash_attention(q, k, v, causal=causal,
+                                        window=window)
+            against_f64(q, k, v, at32, {"kernel": out, "plain": want,
+                                        "library": lib_out})
+            del q, k, v, want, out, lib_out
+            torch.cuda.empty_cache()
+    rec["f32_ulps_max"] = max(u["kernel"] for u in rec["f32_ulps"])
     return rec
 
 
@@ -1906,9 +2060,17 @@ def main() -> int:
         sass = {name: sass_census(lib) for name, lib in zip(SOURCES, libs)
                 if name in ("flash_attention", "topk_reduce", "ssd_scan")}
         print(f"SASS census: {sass}", flush=True)
-        check(sass["flash_attention"]["HGMMA"] > 0
-              and sass["flash_attention"]["UTMALDG"] > 0,
-              "flash_attention's library has no HGMMA or no UTMALDG")
+        attn_fns = sass["flash_attention"]["functions"]
+        check(any("split_planes" in f for f in attn_fns)
+              and sum("_kernel" in f for f in attn_fns) == 13,
+              f"flash_attention's library holds {sorted(attn_fns)}: want "
+              "the split pre-pass and six bf16 and six f32 instantiations")
+        for f, c in attn_fns.items():
+            check("split_planes" in f or (c["HGMMA"] > 0
+                                          and c["UTMALDG"] > 0),
+                  f"flash_attention's {f} has no HGMMA or no UTMALDG: a "
+                  "float32 or bfloat16 call could reach a kernel off the "
+                  "tensor cores")
         check(sass["topk_reduce"]["global float atomics"] == 0
               and sass["topk_reduce"]["global CAS"] == 0,
               "topk_reduce's library has global float atomics or CAS")
@@ -1995,7 +2157,12 @@ def main() -> int:
         "bound_6d_ms": a["bound_6d_ms"], "bound_8d_ms": a["bound_8d_ms"],
         "f32_core_ms": a["f32_core_ms"],
         "shape": a["shape"], "shape_b": b, "shape_c": c,
-        "float32": dict(zip("ac", attn["timed_f32"])),
+        "max_abs_err_f32": attn["max_abs_err_f32"],
+        "f32_ulps_max": attn["f32_ulps_max"], "f32_ulps_limit": ATTN_F32_ULPS,
+        "float32": dict(zip("abc", attn["timed_f32"])),
+        "launches_by_dtype": {
+            dt: sum(n for label, n in attn_runs.items() if dt in label)
+            for dt in ("float32", "bfloat16")},
         "serving": served["throughput"],
     })
     for name, replaces, timed in (

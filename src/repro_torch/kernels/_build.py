@@ -46,8 +46,8 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
                                     _P),
     },
     "flash_attention": {
-        "hsgd_flash_attention": (_P, _P, _P, _P, _I32, _I32, _I32, _I32,
-                                 _I32, _I32, _I32, _I32, _I32, _P),
+        "hsgd_flash_attention": (_P, _P, _P, _P, _P, _I32, _I32, _I32,
+                                 _I32, _I32, _I32, _I32, _I32, _I32, _P),
     },
     "ssd_scan": {
         "hsgd_ssd_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32,

@@ -10,9 +10,20 @@ The wrapper checks its inputs and raises on anything the kernel does not
 take, allocates the output, and then either launches the CUDA kernel on
 PyTorch's current stream (CUDA tensors) or runs the plain version
 :func:`repro_torch.kernels.ref.attention_ref` (CPU tensors, and only
-then).  Every launch adds one to :data:`launch_counts`.  It refuses
-inputs that require grad while autograd records
+then).  Every call that launches adds one to :data:`launch_counts`.  It
+refuses inputs that require grad while autograd records
 (:func:`repro_torch.kernels.refuse_grad`): the kernel has no backward.
+
+Both dtypes run on the tensor cores (``wgmma`` fed by TMA).  bfloat16 reads
+q, k and v as they are.  float32 computes float32-accurate products
+without TF32: a pre-pass splits q, k and v exactly into three bf16 planes
+each (hi + mid + lo == x), into scratch this wrapper allocates, and every
+product keeps six plane pairs (what it drops is under 2^-21 of a term).
+That is 24*D tensor-core operations per visible (query, key) pair, so its
+bound is 24*D at 989 TFLOP/s plus the pre-pass's 10 bytes an element; the
+kernel streams plane tiles through its ring, one a stage, and releases
+each as soon as the products that read it are done
+(``csrc/flash_attention.cu``).
 """
 from __future__ import annotations
 
@@ -110,11 +121,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if any(t.data_ptr() % 16 for t in (q, k, v, o)):
         raise ValueError("flash_attention: q, k, v must start on 16-byte "
                          "boundaries")
+    # float32: the exact bf16 planes of q, k and v, (3, B, S, H, D) each
+    planes = None
+    if q.dtype == torch.float32:
+        planes = torch.empty(3 * (q.numel() + k.numel() + v.numel()),
+                             dtype=torch.bfloat16, device=q.device)
     from repro_torch.kernels._build import load
     fn = load("flash_attention").hsgd_flash_attention
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 None if planes is None else planes.data_ptr(),
                  _DTYPES[q.dtype], b, sq, sk, hq, hk, d, int(causal),
                  0 if window is None else min(window, _INT32), stream)
     if err != 0:

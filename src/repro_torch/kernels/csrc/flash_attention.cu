@@ -23,22 +23,9 @@
 // Bound: operations.  The work is 4*D floating-point operations per
 // visible (query, key) pair against 2*D elements per row of q, k, v and o,
 // so at a prefill's lengths the card's tensor cores (989 TFLOP/s bf16),
-// not its memory, are the limit.  The two types take two paths.
-//
-// float32: a SIMT kernel on the CUDA cores (67 TFLOP/s, a ceiling about 15
-// times the tensor-core bound).  The reference's kernel is float32
-// throughout, and the f32 serving contract (greedy tokens equal to the
-// plain route's) rests on float32 products, which the tensor cores only
-// give as TF32.  Its design:
-//   * one CTA of 8 warps per (q tile of 64 rows, query head, batch); a loop
-//     inside the CTA walks the K/V tiles, in place of the TPU's sequential
-//     fourth grid axis (flash_attention.py:102);
-//   * tiles that the causal or window mask removes entirely are skipped,
-//     not masked (the Pallas kernel visits all of them);
-//   * q, k and v are staged once per tile in shared memory; a warp owns 8
-//     query rows, a lane BK/32 keys for q.k and D/32 output columns for
-//     p.v; the running max, the lane's part of the sum and the accumulator
-//     stay in registers; ragged q and k tiles are masked, not padded.
+// not its memory, are the limit.  Both types run on the tensor cores,
+// through one warp-specialised wgmma + TMA skeleton; bfloat16 is described
+// first, float32 after it.
 //
 // bfloat16: warp-specialised tensor-core kernel (the FA3 shape without
 // ping-pong or persistence).  What bounds it and what it does about it:
@@ -81,24 +68,73 @@
 //     sum stay in registers, a row's four threads reduce with shuffles;
 //     only tiles on the causal diagonal, the window's edge or the ragged
 //     end are masked, and tiles with no visible key are not loaded.
-//   * Grid (q tiles, Hq, B) as the f32 path's, but the CTA's linear index
-//     maps the longest causal q tiles to the first CTAs, so the last wave
-//     is short.
+//   * Grid (q tiles, Hq, B); the CTA's linear index maps the longest
+//     causal q tiles to the first CTAs, so the last wave is short.
 //   * Exponentials: exp2f, with log2(e) folded into the scale (one f32
 //     rounding of scale * log2(e)) and the running max kept in the log2
 //     domain.  At the qwen2-0.5b prefill shape a call evaluates 58.8 M
 //     exponentials, about 0.015 ms of the SFU, the order of the tensor-core
 //     bound.  It changes each probability by a few f32 ulps, far inside
 //     the 2e-2 the bf16 path is held to.
+//
+// float32: the same skeleton on exact bf16 splits, since the tensor
+// cores give float32 products only as TF32, which the port keeps off.
+//   * A split pre-pass (split_planes_kernel, one launch for q, k and v)
+//     cuts every float32 x by truncation, as P is cut above: hi = x with
+//     its low 16 bits cleared, mid = (x - hi) likewise, lo = x - hi - mid.
+//     Each is a bf16 value and hi + mid + lo == x exactly while the terms
+//     stay normal (|x| >= 2^-110 or so).  It writes (3, B, S, H, D) bf16
+//     planes into scratch the wrapper allocates; viewed as (3B, S, H, D),
+//     one tensor map per operand covers the three planes (plane p of batch
+//     b at coordinate p*B + b).  It moves 10 bytes an element: read 4,
+//     write 6.  K and V are read again by every q tile and by Hq/Hk heads,
+//     so splitting them once here is cheaper than in every CTA.
+//   * A product a.b keeps six plane pairs, hi.hi, hi.mid, mid.hi, hi.lo,
+//     lo.hi and mid.mid, accumulated in float32, and drops mid.lo, lo.mid
+//     and lo.lo: |mid| < 2^-7 |x| and |lo| < 2^-15 |x|, so what is dropped
+//     is under 2^-21 |a||b| a term (about 2^-26 on average), the order of
+//     float32's own rounding and far below TF32's 2^-11.  S = Q.K^T over
+//     the Q and K planes, the softmax as in bf16 (exp2f, folded scale, f32
+//     statistics), then P.V over P's three register terms and V's planes:
+//     24*D tensor-core operations per visible pair, a bound of 24*D at 989
+//     TFLOP/s (0.41 of the 4*D-at-67 TFLOP/s ceiling of CUDA-core FMAs)
+//     plus the pre-pass's bytes.
+//   * Q's three planes stay in shared memory; the ring carries one plane
+//     tile (64 keys x D) a stage, in the order the products use them: K_lo
+//     (with Q_hi), K_mid (Q_mid, Q_hi), K_hi (Q_lo, Q_mid, Q_hi), then V_lo
+//     (P_hi), V_mid (P_mid, P_hi), V_hi (P_lo, P_mid, P_hi).  Each plane
+//     tile is read by one commit group of products and its stage released
+//     as soon as that group is done (wgmma.wait_group 2, 1, 0), so the
+//     producer refills the ring while the rest of the products run.
+//     Smallest terms first: the small pairs are summed while S is still
+//     small, so that only the D/16 steps of hi.hi add at the scale of S,
+//     in case the tensor cores' f32 sums are not rounded to nearest.
+//   * Geometry per D (F32Tile): 64-key tiles (S and P stay 32 and 48
+//     registers a thread, as bf16's D = 256), two consumer warpgroups up
+//     to D = 128 and one above, and a ring of 3 to 8 stages, as shared
+//     memory allows: at D = 256, 96 KB of Q planes and 3 x 32 KB of ring.
+//     At D = 256 ptxas reports 255 registers and 104 bytes of spill
+//     stores a thread (O alone is 128 registers); no other D spills.
+//   * The pre-pass ran at 1.1 times its bytes bound on the card, 9-14% of
+//     a call at the timing shapes, so Q is split there too rather than in
+//     the kernel after its TMA load.
+//   * The output is stored as float32, o = acc / max(l, 1e-30) by IEEE
+//     division.
 // Shared memory passes 48 KB, so it is dynamic and each instantiation
 // raises its limit with cudaFuncSetAttribute; a launch the card refuses
 // comes back as the cudaError the entry point returns.
 //
-// Exactness: float32 throughout on the f32 path (expf, IEEE division,
-// built without --use_fast_math); f32 statistics and accumulators on the
-// bf16 path.  Both sum in another order than the plain version's products
-// (kernels/ref.py::attention_ref), so they agree to a tolerance (2e-5 in
-// float32, 2e-2 in bfloat16), not bitwise.
+// Exactness: f32 statistics and accumulators on both paths (exp2f, IEEE
+// division, built without --use_fast_math); a product of two bf16 values,
+// inputs or planes, is exact in float32, and float32 inputs lose only the
+// three dropped plane pairs.  Both sum in another order than the plain
+// version's products (kernels/ref.py::attention_ref), so they agree to a
+// tolerance (2e-5 in float32, 2e-2 in bfloat16), not bitwise.  On an H100
+// the float32 path lies 2.1 to 56 x 2^-24 of max |o| from the same
+// attention in float64, where attention_ref lies 2.3 to 21 and the design
+// without the lo planes 306 to 1007: about 4x the plain version's error,
+// as sums that are not rounded to nearest would give.  chip_smoke.py holds
+// it to 128 x 2^-24 of max |o| (ATTN_F32_ULPS) beside 2e-5.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -108,252 +144,7 @@
 
 namespace {
 
-// ---- float32: SIMT ----------------------------------------------------
-constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kBlockQ = 64;
-constexpr int kRowsPerWarp = kBlockQ / kWarps;
 constexpr float kNegInf = -1e30f;
-static_assert(kRowsPerWarp == 8, "a key's probabilities are two float4s");
-
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
-
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Stage `rows` rows of one head (row r at src + r * row_stride, D values
-// each) into dst as float32 rows of `ld` floats; rows at or past `valid`
-// are zero.
-template <typename T, int D>
-__device__ __forceinline__ void stage(const T* __restrict__ src,
-                                      long long row_stride, int rows,
-                                      int valid, float* __restrict__ dst,
-                                      int ld) {
-  constexpr int kVecPerRow = D / 4;
-  for (int e = threadIdx.x; e < rows * kVecPerRow; e += kThreads) {
-    const int r = e / kVecPerRow;
-    const int c = (e - r * kVecPerRow) * 4;
-    const float4 out = r < valid ? load4(src + r * row_stride + c)
-                                 : make_float4(0.f, 0.f, 0.f, 0.f);
-    *reinterpret_cast<float4*>(dst + r * ld + c) = out;
-  }
-}
-
-template <int D, int BK>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (static_cast<size_t>(kBlockQ) * (D + 4) +
-                          static_cast<size_t>(BK) * (D + 4) +
-                          static_cast<size_t>(BK) * D +
-                          static_cast<size_t>(kWarps) * BK * kRowsPerWarp);
-}
-
-template <typename T, int D, int BK>
-__global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int Sq,
-                       int Sk, int Hq, int Hk, int causal, int window,
-                       float scale) {
-  constexpr int kLd = D + 4;          // padded row of the q and k tiles
-  constexpr int kKeysPerLane = BK / 32;
-  constexpr int kCols = D / 32;       // output columns a lane owns
-  extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);   // [kBlockQ][kLd]
-  float* ks = qs + kBlockQ * kLd;                // [BK][kLd]
-  float* vs = ks + BK * kLd;                     // [BK][D]
-  float* ps = vs + BK * D;                       // [kWarps][BK][8]
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (Hq / Hk);
-  const int q_first = blockIdx.x * kBlockQ;
-  const int q_rows = min(kBlockQ, Sq - q_first);
-  const int q_last = q_first + q_rows - 1;
-
-  // The K/V tiles that hold at least one visible key for some row here.
-  const int nk = (Sk + BK - 1) / BK;
-  int kt_end = nk;
-  if (causal) kt_end = min(nk, q_last / BK + 1);
-  int kt_begin = 0;
-  if (window > 0 && q_first - window + 1 > 0)
-    kt_begin = (q_first - window + 1) / BK;
-
-  const long long q_stride = static_cast<long long>(Hq) * D;
-  const long long kv_stride = static_cast<long long>(Hk) * D;
-  const T* qg = q + ((static_cast<long long>(b) * Sq + q_first) * Hq + h) * D;
-  stage<T, D>(qg, q_stride, kBlockQ, q_rows, qs, kLd);
-
-  float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][kCols];
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    m[r] = kNegInf;
-    l[r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[r][c] = 0.f;
-  }
-  const float* qw = qs + warp * kRowsPerWarp * kLd;
-  float* pw = ps + warp * BK * kRowsPerWarp;
-  const int row0 = q_first + warp * kRowsPerWarp;   // query position of r=0
-
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k0 = kt * BK;
-    const long long kv_off =
-        ((static_cast<long long>(b) * Sk + k0) * Hk + hk) * D;
-    __syncthreads();   // the previous tile's k/v (and, first, nothing)
-    stage<T, D>(k + kv_off, kv_stride, BK, Sk - k0, ks, kLd);
-    stage<T, D>(v + kv_off, kv_stride, BK, Sk - k0, vs, D);
-    __syncthreads();
-
-    // s[r][t] = q_row(r) . k_key(lane + 32 t)
-    float s[kRowsPerWarp][kKeysPerLane];
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r)
-#pragma unroll
-      for (int t = 0; t < kKeysPerLane; ++t) s[r][t] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      float4 kv[kKeysPerLane];
-#pragma unroll
-      for (int t = 0; t < kKeysPerLane; ++t)
-        kv[t] = *reinterpret_cast<const float4*>(ks + (lane + 32 * t) * kLd + d);
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const float4 qv = *reinterpret_cast<const float4*>(qw + r * kLd + d);
-#pragma unroll
-        for (int t = 0; t < kKeysPerLane; ++t) {
-          s[r][t] = fmaf(qv.x, kv[t].x, s[r][t]);
-          s[r][t] = fmaf(qv.y, kv[t].y, s[r][t]);
-          s[r][t] = fmaf(qv.z, kv[t].z, s[r][t]);
-          s[r][t] = fmaf(qv.w, kv[t].w, s[r][t]);
-        }
-      }
-    }
-
-    // mask and online softmax; s becomes the probabilities
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const int qpos = row0 + r;
-      float mx = kNegInf;
-#pragma unroll
-      for (int t = 0; t < kKeysPerLane; ++t) {
-        const int kpos = k0 + lane + 32 * t;
-        bool ok = kpos < Sk;
-        if (causal) ok = ok && kpos <= qpos;
-        if (window > 0) ok = ok && qpos - kpos < window;
-        s[r][t] = ok ? s[r][t] * scale : kNegInf;
-        mx = fmaxf(mx, s[r][t]);
-      }
-      const float m_new = fmaxf(m[r], warp_max(mx));
-      const float alpha = expf(m[r] - m_new);
-      float part = 0.f;
-#pragma unroll
-      for (int t = 0; t < kKeysPerLane; ++t) {
-        s[r][t] = expf(s[r][t] - m_new);
-        part += s[r][t];
-      }
-      l[r] = alpha * l[r] + part;
-      m[r] = m_new;
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) acc[r][c] *= alpha;
-    }
-    // the 8 rows' probabilities of a key as two 16-byte stores
-#pragma unroll
-    for (int t = 0; t < kKeysPerLane; ++t) {
-      float* dst = pw + (lane + 32 * t) * kRowsPerWarp;
-      *reinterpret_cast<float4*>(dst) =
-          make_float4(s[0][t], s[1][t], s[2][t], s[3][t]);
-      *reinterpret_cast<float4*>(dst + 4) =
-          make_float4(s[4][t], s[5][t], s[6][t], s[7][t]);
-    }
-    __syncwarp();
-
-    // acc[r][c] += sum_j p[j][r] * v[j][lane + 32 c]
-#pragma unroll 4
-    for (int j = 0; j < BK; ++j) {
-      const float4 pa = *reinterpret_cast<const float4*>(pw + j * kRowsPerWarp);
-      const float4 pb =
-          *reinterpret_cast<const float4*>(pw + j * kRowsPerWarp + 4);
-      const float p[kRowsPerWarp] = {pa.x, pa.y, pa.z, pa.w,
-                                     pb.x, pb.y, pb.z, pb.w};
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-        const float vv = vs[j * D + lane + 32 * c];
-#pragma unroll
-        for (int r = 0; r < kRowsPerWarp; ++r)
-          acc[r][c] = fmaf(p[r], vv, acc[r][c]);
-      }
-    }
-    __syncwarp();   // pw is rewritten by the next tile
-  }
-
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int qpos = row0 + r;
-    const float denom = fmaxf(warp_sum(l[r]), 1e-30f);
-    if (qpos >= Sq) continue;
-    T* og = o + ((static_cast<long long>(b) * Sq + qpos) * Hq + h) * D;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) store1(og + lane + 32 * c, acc[r][c] / denom);
-  }
-}
-
-template <typename T, int D, int BK>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int Sq, int Sk, int Hq, int Hk, int causal,
-                   int window, cudaStream_t stream) {
-  auto kernel = flash_attention_kernel<T, D, BK>;
-  constexpr size_t smem = smem_bytes<D, BK>();
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(D)));
-  const dim3 grid((Sq + kBlockQ - 1) / kBlockQ, Hq, B);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Sq, Sk, Hq, Hk, causal,
-      window, scale);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
-                     int B, int Sq, int Sk, int Hq, int Hk, int D,
-                     int causal, int window, cudaStream_t stream) {
-  // 64-key tiles up to D = 96; 32-key tiles above, so that shared memory
-  // stays under 150 KB and a D = 128 CTA leaves room for two more per SM
-  switch (D) {
-    case 32:
-      return launch<T, 32, 64>(q, k, v, o, B, Sq, Sk, Hq, Hk, causal, window, stream);
-    case 64:
-      return launch<T, 64, 64>(q, k, v, o, B, Sq, Sk, Hq, Hk, causal, window, stream);
-    case 96:
-      return launch<T, 96, 64>(q, k, v, o, B, Sq, Sk, Hq, Hk, causal, window, stream);
-    case 128:
-      return launch<T, 128, 32>(q, k, v, o, B, Sq, Sk, Hq, Hk, causal, window, stream);
-    case 192:
-      return launch<T, 192, 32>(q, k, v, o, B, Sq, Sk, Hq, Hk, causal, window, stream);
-    case 256:
-      return launch<T, 256, 32>(q, k, v, o, B, Sq, Sk, Hq, Hk, causal, window, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
 
 // ---- bfloat16: wgmma + TMA ----------------------------------------------
 
@@ -874,21 +665,461 @@ cudaError_t dispatch_bf16(const void* q, const void* k, const void* v,
   }
 }
 
+
+// ---- float32: exact bf16 splits on wgmma + TMA ----------------------------
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// The planes of q, k and v: src[t] holds n4[t] float4s, dst[t] the planes
+// hi, mid and lo one after another, n4[t] groups of 4 bf16 each.
+struct SplitArgs {
+  const float4* src[3];
+  uint2* dst[3];
+  long long n4[3];
+};
+
+constexpr int kSplitThreads = 256;
+
+// One launch splits q, k and v (blockIdx.y); a thread takes a float4 at a
+// time and writes 8 bytes to each plane.  The operand is chosen by
+// selects, not by indexing: an indexed parameter array is copied to the
+// stack by every thread, which took the kernel to 4.4 times its bound.
+__global__ void __launch_bounds__(kSplitThreads)
+split_planes_kernel(const SplitArgs args) {
+  const int t = blockIdx.y;
+  const float4* __restrict__ src =
+      t == 0 ? args.src[0] : t == 1 ? args.src[1] : args.src[2];
+  uint2* __restrict__ dst =
+      t == 0 ? args.dst[0] : t == 1 ? args.dst[1] : args.dst[2];
+  const long long n4 = t == 0 ? args.n4[0] : t == 1 ? args.n4[1] : args.n4[2];
+  for (long long i = blockIdx.x * static_cast<long long>(kSplitThreads) +
+                     threadIdx.x;
+       i < n4; i += static_cast<long long>(kSplitThreads) * gridDim.x) {
+    const float4 x = src[i];
+    // (hi, x - hi), then (mid, lo) of x - hi
+    const float2 a0 = split_top(x.x), a1 = split_top(x.y);
+    const float2 a2 = split_top(x.z), a3 = split_top(x.w);
+    const float2 b0 = split_top(a0.y), b1 = split_top(a1.y);
+    const float2 b2 = split_top(a2.y), b3 = split_top(a3.y);
+    dst[i] = make_uint2(bf16x2_pack(x.x, x.y), bf16x2_pack(x.z, x.w));
+    dst[n4 + i] =
+        make_uint2(bf16x2_pack(a0.y, a1.y), bf16x2_pack(a2.y, a3.y));
+    dst[2 * n4 + i] =
+        make_uint2(bf16x2_pack(b0.y, b1.y), bf16x2_pack(b2.y, b3.y));
+  }
+}
+
+// Tile geometry of one float32 instantiation: D head dim, CW columns per
+// TMA box, NC consumer warpgroups of 64 query rows, BK keys per tile,
+// STAGES plane tiles in the ring.
+template <int D, int CW, int NC, int BK, int STAGES>
+struct F32Tile {
+  static constexpr int kBlockQ = 64 * NC;
+  static constexpr int kRowBytes = 2 * CW;
+  static constexpr int kChunks = D / CW;
+  static constexpr int kQPlane = kChunks * kBlockQ * kRowBytes;  // one of Q's
+  static constexpr int kTile = kChunks * BK * kRowBytes;  // a K or V plane
+  static constexpr int kStages = STAGES;
+  static constexpr int kThreads = 128 * (NC + 1);   // + producer warpgroup
+  static constexpr int kUsed =
+      3 * kQPlane + kStages * kTile + 8 * (1 + 2 * kStages);
+  // as Bf16Tile: 1 KB of slack for the swizzle's alignment, and with two
+  // consumers at least 116 KB, so that no second CTA shares the SM
+  static constexpr int kSmem =
+      NC == 2 && kUsed + 1024 < 116 * 1024 ? 116 * 1024 : kUsed + 1024;
+  static constexpr uint64_t kLayout = CW == 64 ? 1 : 2;   // wgmma swizzle
+  static constexpr uint32_t kGroupBytes = 8 * kRowBytes;  // 8 rows
+  static_assert(D % CW == 0 && (CW == 32 || CW == 64), "box width");
+  static_assert(BK == 64, "key tile: S is one n64 product a k-step");
+  // a consumer holds the three planes of a K or V tile at once
+  static_assert(kStages >= 3, "ring stages");
+  static_assert(kUsed + 1024 <= 227 * 1024, "shared memory");
+};
+
+// sc (64 query rows x 64 keys, accumulator layout) += Q plane . K plane^T
+// over D: q is the warpgroup's rows of one Q plane, k one plane tile;
+// `first` starts the sum from zero
+template <typename G, int D, int CW, int BK>
+__device__ __forceinline__ void qk_plane(float* sc, uint32_t q, uint32_t k,
+                                         bool first) {
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+    const int c = ks / (CW / 16), kk = ks % (CW / 16);
+    const uint64_t da =
+        wgmma_desc(q + c * G::kBlockQ * G::kRowBytes + 32 * kk, 16,
+                   G::kGroupBytes, G::kLayout);
+    const uint64_t db = wgmma_desc(k + c * BK * G::kRowBytes + 32 * kk, 16,
+                                   G::kGroupBytes, G::kLayout);
+    mma_ss_n64(sc, da, db, !(first && ks == 0));
+  }
+}
+
+// acc (64 x D) += P term . V plane tile, 16 keys an instruction, CW
+// columns each
+template <typename G, int D, int CW, int BK>
+__device__ __forceinline__ void pv_plane(float* acc, const uint32_t (*p)[4],
+                                         uint32_t v) {
+#pragma unroll
+  for (int u = 0; u < BK / 16; ++u) {
+#pragma unroll
+    for (int c = 0; c < G::kChunks; ++c) {
+      const uint64_t db =
+          wgmma_desc(v + c * BK * G::kRowBytes + 16 * u * G::kRowBytes,
+                     BK * G::kRowBytes, G::kGroupBytes, G::kLayout);
+      mma_rs<CW>(acc + c * (CW / 2), p[u], db);
+    }
+  }
+}
+
+template <int D, int CW, int NC, int BK, int STAGES>
+__global__ void __launch_bounds__(F32Tile<D, CW, NC, BK, STAGES>::kThreads, 1)
+flash_attention_f32_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           float* __restrict__ o, int B, int Sq, int Sk,
+                           int Hq, int Hk, int causal, int window,
+                           float scale_log2) {
+  using G = F32Tile<D, CW, NC, BK, STAGES>;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  // Q's planes hi, mid, lo; the ring; then q_full, full[], empty[]
+  const uint32_t q_s = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t ring = q_s + 3 * G::kQPlane;
+  const uint32_t q_full = ring + G::kStages * G::kTile;
+  const uint32_t full0 = q_full + 8, empty0 = full0 + 8 * G::kStages;
+
+  // this CTA's (q tile, head, batch): longest causal q tiles first
+  const int hb = gridDim.y * gridDim.z;
+  const int lin = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
+  const int qt = gridDim.x - 1 - lin / hb;
+  const int rest = lin % hb;
+  const int h = rest % Hq, b = rest / Hq;
+  const int hk = h / (Hq / Hk);
+  const int q_first = qt * G::kBlockQ;
+  const int q_last = min(q_first + G::kBlockQ, Sq) - 1;
+
+  // the K/V tiles that hold at least one visible key for some row here
+  const int nk = (Sk + BK - 1) / BK;
+  const int kt_end = causal ? min(nk, q_last / BK + 1) : nk;
+  const int kt_begin =
+      window > 0 && q_first - window + 1 > 0 ? (q_first - window + 1) / BK : 0;
+  const int ntiles = kt_end - kt_begin;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < G::kStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 128 * NC);   // every consumer thread
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == NC) {
+    // ---- producer warpgroup: one thread issues every load ----
+    if constexpr (NC == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 24;");
+    if (threadIdx.x == 128 * NC) {
+      mbar_expect_tx(q_full, 3 * G::kQPlane);
+#pragma unroll
+      for (int p = 0; p < 3; ++p) {
+#pragma unroll
+        for (int c = 0; c < G::kChunks; ++c)
+          tma_load(q_s + p * G::kQPlane + c * G::kBlockQ * G::kRowBytes, &tq,
+                   q_full, c * CW, h, q_first, p * B + b);
+      }
+      // plane tile g: per key tile K lo, mid, hi, then V lo, mid, hi
+      int g = 0;
+      for (int i = 0; i < ntiles; ++i) {
+        const int k0 = (kt_begin + i) * BK;
+        for (int j = 0; j < 6; ++j, ++g) {
+          const int s = g % G::kStages;
+          const uint32_t full = full0 + 8 * s;
+          mbar_wait(empty0 + 8 * s, ((g / G::kStages) & 1) ^ 1);
+          mbar_expect_tx(full, G::kTile);
+          const CUtensorMap* map = j < 3 ? &tk : &tv;
+          const int plane = 2 - j % 3;
+#pragma unroll
+          for (int c = 0; c < G::kChunks; ++c)
+            tma_load(ring + s * G::kTile + c * BK * G::kRowBytes, map, full,
+                     c * CW, hk, k0, plane * B + b);
+        }
+      }
+    }
+  } else {
+    // ---- consumer warpgroup wg: query rows q_first + 64 wg + [0, 64) ----
+    if constexpr (NC == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 240;");
+    const int t = threadIdx.x - 128 * wg;
+    const int warp = t >> 5, lane = t & 31;
+    const int r_lo = q_first + 64 * wg;
+    // accumulator layout: register 4j + e holds row (e < 2 ? row_a : row_b)
+    // and column 8j + col + (e & 1)
+    const int row_a = r_lo + 16 * warp + (lane >> 2), row_b = row_a + 8;
+    const int col = 2 * (lane & 3);
+    float acc[D / 2];
+#pragma unroll
+    for (int j = 0; j < D / 2; ++j) acc[j] = 0.f;
+    float m_a = kNegInf, m_b = kNegInf, l_a = 0.f, l_b = 0.f;
+    // the warpgroup's rows of Q's planes
+    const uint32_t q_hi = q_s + 64 * wg * G::kRowBytes;
+    const uint32_t q_mid = q_hi + G::kQPlane, q_lo = q_hi + 2 * G::kQPlane;
+
+    // plane tile g: wait until it has landed and return its address; and
+    // hand its stage back to the producer (every thread arrives: a lane-0
+    // branch here is no faster)
+    auto arrive = [&](int g) {
+      const int s = g % G::kStages;
+      mbar_wait(full0 + 8 * s, (g / G::kStages) & 1);
+      return ring + s * G::kTile;
+    };
+    auto release = [&](int g) { mbar_arrive(empty0 + 8 * (g % G::kStages)); };
+
+    mbar_wait(q_full, 0);
+    for (int i = 0, g = 0; i < ntiles; ++i, g += 6) {
+      const int k0 = (kt_begin + i) * BK;
+
+      // S = Q . K^T over the six kept plane pairs, smallest first, in one
+      // commit group per K plane; each plane's stage is released as soon
+      // as its group is done.  All three planes are waited for before the
+      // first product: a wait between products put a divergent loop inside
+      // the wgmma pipeline, which ptxas serialised (C7520) at D = 192 and
+      // 256, and took (b) from 0.40 to 0.62 ms on the card.
+      float sc[BK / 2];
+      const uint32_t k_lo = arrive(g), k_mid = arrive(g + 1);
+      const uint32_t k_hi = arrive(g + 2);
+      wgmma_fence();
+      qk_plane<G, D, CW, BK>(sc, q_hi, k_lo, true);
+      wgmma_commit();
+      qk_plane<G, D, CW, BK>(sc, q_mid, k_mid, false);
+      qk_plane<G, D, CW, BK>(sc, q_hi, k_mid, false);
+      wgmma_commit();
+      qk_plane<G, D, CW, BK>(sc, q_lo, k_hi, false);
+      qk_plane<G, D, CW, BK>(sc, q_mid, k_hi, false);
+      qk_plane<G, D, CW, BK>(sc, q_hi, k_hi, false);
+      wgmma_commit();
+      wgmma_wait<2>();
+      release(g);
+      wgmma_wait<1>();
+      release(g + 1);
+      wgmma_wait<0>();
+      release(g + 2);
+#pragma unroll
+      for (int j = 0; j < BK / 2; ++j) pin(sc[j]);
+
+      // scale (log2 domain), mask where this tile needs it, row max
+      const bool masked = k0 + BK > Sk || (causal && k0 + BK - 1 > r_lo) ||
+                          (window > 0 && r_lo + 63 - k0 >= window);
+      float mx_a = m_a, mx_b = m_b;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = sc[4 * j + e] * scale_log2;
+          if (masked) {
+            const int key = k0 + 8 * j + col + (e & 1);
+            const int row = e < 2 ? row_a : row_b;
+            bool ok = key < Sk;
+            if (causal) ok = ok && key <= row;
+            if (window > 0) ok = ok && row - key < window;
+            x = ok ? x : kNegInf;
+          }
+          sc[4 * j + e] = x;
+          if (e < 2) {
+            mx_a = fmaxf(mx_a, x);
+          } else {
+            mx_b = fmaxf(mx_b, x);
+          }
+        }
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
+        mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
+      }
+      const float alpha_a = exp2f(m_a - mx_a), alpha_b = exp2f(m_b - mx_b);
+      m_a = mx_a;
+      m_b = mx_b;
+
+      // probabilities, split exactly into bf16 hi + mid + lo register-A
+      // fragments: the fragment of key slice u (keys 16u..16u+15) is S's
+      // registers 8u..8u+7
+      uint32_t p_hi[BK / 16][4], p_mid[BK / 16][4], p_lo[BK / 16][4];
+      float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+      for (int u = 0; u < BK / 16; ++u) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float mr = (r & 1) ? m_b : m_a;
+          const float p0 = exp2f(sc[8 * u + 2 * r] - mr);
+          const float p1 = exp2f(sc[8 * u + 2 * r + 1] - mr);
+          if (r & 1) {
+            sum_b += p0 + p1;
+          } else {
+            sum_a += p0 + p1;
+          }
+          const float2 m0 = split_top(p0), m1 = split_top(p1);
+          const float2 l0 = split_top(m0.y), l1 = split_top(m1.y);
+          p_hi[u][r] = bf16x2_pack(p0, p1);
+          p_mid[u][r] = bf16x2_pack(m0.y, m1.y);
+          p_lo[u][r] = bf16x2_pack(l0.y, l1.y);
+        }
+      }
+      l_a = alpha_a * l_a + sum_a;
+      l_b = alpha_b * l_b + sum_b;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        acc[4 * j] *= alpha_a;
+        acc[4 * j + 1] *= alpha_a;
+        acc[4 * j + 2] *= alpha_b;
+        acc[4 * j + 3] *= alpha_b;
+      }
+
+      // O += P . V over the six kept pairs of P's terms and V's planes,
+      // smallest first, in the same way
+      const uint32_t v_lo = arrive(g + 3), v_mid = arrive(g + 4);
+      const uint32_t v_hi = arrive(g + 5);
+      wgmma_fence();
+      pv_plane<G, D, CW, BK>(acc, p_hi, v_lo);
+      wgmma_commit();
+      pv_plane<G, D, CW, BK>(acc, p_mid, v_mid);
+      pv_plane<G, D, CW, BK>(acc, p_hi, v_mid);
+      wgmma_commit();
+      pv_plane<G, D, CW, BK>(acc, p_lo, v_hi);
+      pv_plane<G, D, CW, BK>(acc, p_mid, v_hi);
+      pv_plane<G, D, CW, BK>(acc, p_hi, v_hi);
+      wgmma_commit();
+      wgmma_wait<2>();
+      release(g + 3);
+      wgmma_wait<1>();
+      release(g + 4);
+      wgmma_wait<0>();
+      release(g + 5);
+#pragma unroll
+      for (int j = 0; j < D / 2; ++j) pin(acc[j]);
+#pragma unroll
+      for (int u = 0; u < BK / 16; ++u) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          pin(p_hi[u][r]);
+          pin(p_mid[u][r]);
+          pin(p_lo[u][r]);
+        }
+      }
+    }
+
+    // o = acc / l, the row's sum reduced over its four threads
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
+      l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
+    }
+    const float den_a = fmaxf(l_a, 1e-30f), den_b = fmaxf(l_b, 1e-30f);
+    const long long stride = static_cast<long long>(Hq) * D;
+    float* oa =
+        o + (static_cast<long long>(b) * Sq + row_a) * stride + h * D + col;
+    float* ob = oa + 8 * stride;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      // register 4j holds column 8j + col of its row, as in bf16
+      if (row_a < Sq)
+        *reinterpret_cast<float2*>(oa + 8 * j) =
+            make_float2(acc[4 * j] / den_a, acc[4 * j + 1] / den_a);
+      if (row_b < Sq)
+        *reinterpret_cast<float2*>(ob + 8 * j) =
+            make_float2(acc[4 * j + 2] / den_b, acc[4 * j + 3] / den_b);
+    }
+  }
+}
+
+// The split pre-pass into `planes` (3 (B Sq Hq + 2 B Sk Hk) D bf16: q's
+// planes, then k's, then v's), then the attention kernel on them.
+template <int D, int CW, int NC, int BK, int STAGES>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
+                       void* planes, int B, int Sq, int Sk, int Hq, int Hk,
+                       int causal, int window, cudaStream_t stream) {
+  using G = F32Tile<D, CW, NC, BK, STAGES>;
+  const long long nq = static_cast<long long>(B) * Sq * Hq * D;
+  const long long nk = static_cast<long long>(B) * Sk * Hk * D;
+  __nv_bfloat16* pq = static_cast<__nv_bfloat16*>(planes);
+  __nv_bfloat16* pk = pq + 3 * nq;
+  __nv_bfloat16* pv = pk + 3 * nk;
+  const SplitArgs args = {
+      {static_cast<const float4*>(q), static_cast<const float4*>(k),
+       static_cast<const float4*>(v)},
+      {reinterpret_cast<uint2*>(pq), reinterpret_cast<uint2*>(pk),
+       reinterpret_cast<uint2*>(pv)},
+      {nq / 4, nk / 4, nk / 4}};
+  // enough blocks to fill the card twice over; each thread then loops
+  const long long blocks =
+      ((nq > nk ? nq : nk) / 4 + kSplitThreads - 1) / kSplitThreads;
+  split_planes_kernel<<<dim3(static_cast<unsigned>(blocks < 2048 ? blocks
+                                                                 : 2048),
+                             3),
+                        kSplitThreads, 0, stream>>>(args);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  CUtensorMap tq, tk, tv;
+  if (!tensor_map(&tq, pq, 3 * B, Sq, Hq, D, CW, G::kBlockQ) ||
+      !tensor_map(&tk, pk, 3 * B, Sk, Hk, D, CW, BK) ||
+      !tensor_map(&tv, pv, 3 * B, Sk, Hk, D, CW, BK))
+    return cudaErrorInvalidValue;
+  auto kernel = flash_attention_f32_kernel<D, CW, NC, BK, STAGES>;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::kSmem);
+  if (err != cudaSuccess) return err;
+  const float scale_log2 = static_cast<float>(
+      1.4426950408889634 / std::sqrt(static_cast<double>(D)));
+  const dim3 grid((Sq + G::kBlockQ - 1) / G::kBlockQ, Hq, B);
+  kernel<<<grid, G::kThreads, G::kSmem, stream>>>(
+      tq, tk, tv, static_cast<float*>(o), B, Sq, Sk, Hq, Hk, causal, window,
+      scale_log2);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch_f32(const void* q, const void* k, const void* v,
+                         void* o, void* planes, int B, int Sq, int Sk,
+                         int Hq, int Hk, int D, int causal, int window,
+                         cudaStream_t stream) {
+  // <D, box width, consumer warpgroups, keys per tile, ring stages>: two
+  // consumers up to D = 128, and the stages that fit beside Q's planes
+  switch (D) {
+    case 32:
+      return launch_f32<32, 32, 2, 64, 8>(q, k, v, o, planes, B, Sq, Sk, Hq, Hk, causal, window, stream);
+    case 64:
+      return launch_f32<64, 64, 2, 64, 8>(q, k, v, o, planes, B, Sq, Sk, Hq, Hk, causal, window, stream);
+    case 96:
+      return launch_f32<96, 32, 2, 64, 6>(q, k, v, o, planes, B, Sq, Sk, Hq, Hk, causal, window, stream);
+    case 128:
+      return launch_f32<128, 64, 2, 64, 6>(q, k, v, o, planes, B, Sq, Sk, Hq, Hk, causal, window, stream);
+    case 192:
+      return launch_f32<192, 64, 1, 64, 6>(q, k, v, o, planes, B, Sq, Sk, Hq, Hk, causal, window, stream);
+    case 256:
+      return launch_f32<256, 64, 1, 64, 3>(q, k, v, o, planes, B, Sq, Sk, Hq, Hk, causal, window, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16.  window <= 0 means no window.  Returns the
-// cudaError of the launch (0 on success); the wrapper checks shapes,
-// types, alignment and grid limits before it calls.
+// dtype: 0 float32, 1 bfloat16.  window <= 0 means no window.  planes is
+// the float32 path's scratch, 3 (B Sq Hq + 2 B Sk Hk) D bf16 values on
+// 16 bytes (unused in bfloat16).  Returns the cudaError of the launch (0 on
+// success); the wrapper checks shapes, types, alignment and grid limits
+// before it calls.
 extern "C" int hsgd_flash_attention(const void* q, const void* k,
-                                    const void* v, void* o, int dtype, int B,
-                                    int Sq, int Sk, int Hq, int Hk, int D,
-                                    int causal, int window,
+                                    const void* v, void* o, void* planes,
+                                    int dtype, int B, int Sq, int Sk, int Hq,
+                                    int Hk, int D, int causal, int window,
                                     cudaStream_t stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || Hq <= 0 || Hk <= 0 || Hq % Hk)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err =
-      dtype == 0 ? dispatch<float>(q, k, v, o, B, Sq, Sk, Hq, Hk, D, causal,
-                                   window, stream)
+      dtype == 0 && planes != nullptr
+          ? dispatch_f32(q, k, v, o, planes, B, Sq, Sk, Hq, Hk, D, causal,
+                         window, stream)
       : dtype == 1 ? dispatch_bf16(q, k, v, o, B, Sq, Sk, Hq, Hk, D, causal,
                                    window, stream)
                    : cudaErrorInvalidValue;

@@ -10,11 +10,19 @@ installed; ``tests/conftest.py`` imports JAX, so run it there with
     PYTHONPATH=src python -m pytest -q --noconftest -m gpu \\
         tests/test_torch_kernels_cuda.py
 """
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+ROOT = Path(__file__).resolve().parents[1]
+if str(ROOT) not in sys.path:       # chip_smoke.py, at the repo's root
+    sys.path.insert(0, str(ROOT))
+
+from chip_smoke import ATTN_ROWS  # noqa: E402
 from repro_torch.kernels import comms as kern  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 
@@ -215,6 +223,10 @@ ATTN_CASES = [
     (1, 200, 200, 4, 2, 128, "float32", True, 512),        # window > S
     (2, 130, 130, 4, 4, 96, "float32", True, None),        # Hq == Hk
     (2, 130, 130, 4, 4, 96, "bfloat16", True, 16),
+    # rows of widely spread magnitude: q, k and v scaled by
+    # logspace(*ATTN_ROWS) along the sequence
+    (2, 300, 300, 4, 2, 64, "float32", True, None, "rows"),
+    (1, 256, 256, 4, 2, 256, "float32", True, 100, "rows"),
 ]
 
 
@@ -224,12 +236,16 @@ def test_flash_attention_matches_plain_version(cuda, case):
     from repro_torch.kernels import attention as kattn
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    b, sq, sk, hq, hk, d, dtype, causal, window = case
+    b, sq, sk, hq, hk, d, dtype, causal, window, *rows = case
     dt = getattr(torch, dtype)
     gen = torch.Generator(device=cuda).manual_seed(sq + d)
-    q = torch.randn((b, sq, hq, d), generator=gen, device=cuda).to(dt)
-    k = torch.randn((b, sk, hk, d), generator=gen, device=cuda).to(dt)
-    v = torch.randn((b, sk, hk, d), generator=gen, device=cuda).to(dt)
+    q, k, v = (torch.randn((b, s, h, d), generator=gen, device=cuda)
+               for s, h in ((sq, hq), (sk, hk), (sk, hk)))
+    if rows:
+        q, k, v = (x * torch.logspace(*ATTN_ROWS, x.shape[1],
+                                      device=cuda)[:, None, None]
+                   for x in (q, k, v))
+    q, k, v = (x.to(dt) for x in (q, k, v))
     kattn.reset_launch_counts()
     out = kattn.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
