@@ -148,10 +148,27 @@ or of the JAX package.  It
    (seed 0, T=240) on the card against the CPU within LOSS_RTOL, and
    fig3c's four divergences on the same grads within DIV_RTOL of the
    largest; no kernel may launch (this path runs no codec);
-11. prints one ``{"ssm": ...}`` JSON line with the SSM throughputs, one
+11. runtime phase: the simulated runtime, elastic drop rounds and async
+   stale slots on the sim.  The twin of ``benchmarks/bench_runtime.py``
+   (``repro_torch.experiments.bench_runtime.matrix``: two topologies x
+   four straggler regimes x three arms, T=96, from the reference's
+   committed initial params) on the card and on the CPU: every simulated
+   field and step to target equal, ``best_acc`` side by side, the same
+   claims, and the only false claim three_level / bursty
+   ``async_beats_elastic`` (as in the reference's own run).  Then the
+   host cost of the three arms of two_level / bursty: wall seconds of an
+   arm and ``run_rounds`` steps/s without evals, median of RUNTIME_REPS.
+   Then the quickstart world through the new paths with codecs, launches
+   counted from zero for each run: async int8 (``async_levels={1: 1}``),
+   elastic int8 (a bursty runtime with ``DeadlineElastic(2.0)``, which must
+   drop a worker) and async sign; each bit for bit the plain versions'
+   run on the card, within LOSS_RTOL of the CPU run's loss, with the CPU
+   run's wire bytes;
+12. prints one ``{"ssm": ...}`` JSON line with the SSM throughputs, one
    ``{"topk_sim": ..., "mesh": ...}`` line, one ``{"experiments": ...}``
-   line, one ``{"kernels": [...]}`` JSON line (all nine kernels), then
-   the result line ``{"ok": true, "device": {...}}`` last.
+   line, one ``{"runtime": ...}`` line, one ``{"kernels": [...]}`` JSON
+   line (all nine kernels), then the result line ``{"ok": true, "device":
+   {...}}`` last.
 
 Any failed phase exits non-zero before the result line.
 
@@ -335,6 +352,10 @@ EXPERIMENTS_BUDGET_S = 180.0
 DIV_RTOL = 1e-5
 SPS_SPEC = (8, 2, 16, 4)         # two_level(8, 2, 16, 4)
 SPS_T, SPS_REPS = 256, 3
+# runtime phase: the host cost of the new paths is the median of this
+# many runs of each arm; the false claim the twin must reproduce
+RUNTIME_REPS = 3
+RUNTIME_FALSE_CLAIMS = ["three_level/bursty/async_beats_elastic"]
 TPU_KERNEL = "src/repro/kernels/comms.py"
 SOURCE = "src/repro_torch/kernels/csrc/{}.cu"
 
@@ -573,13 +594,16 @@ def sign_kernel_phase(torch, kern, ref):
     return recs
 
 
-def quickstart(device: str, comms, spec=None, opt=None, executor=None):
+def quickstart(device: str, comms, spec=None, opt=None, executor=None,
+               **cfg):
     """The quickstart world through HSGD.run_rounds, on the two-level
     hierarchy or ``spec`` (group sizes, periods), with sgd(0.08) or
-    ``opt``, on the sim executor or ``executor``; returns the final global
-    loss and accuracy, the wire bytes, the launch counts of the run, its
-    seconds and the final params and error-feedback residuals of every
-    worker (on the CPU; a mesh rank gathers them)."""
+    ``opt``, on the sim executor or ``executor``, with the further
+    ``EngineConfig`` fields ``cfg`` (a runtime, async levels); returns the
+    final global loss and accuracy, the wire bytes, the launch counts of
+    the run, its seconds, the runtime's report (None without one) and the
+    final params and error-feedback residuals of every worker (on the CPU;
+    a mesh rank gathers them)."""
     import torch
     from repro_torch.core import (EngineConfig, HSGD, HierarchySpec,
                                   make_topology)
@@ -597,7 +621,7 @@ def quickstart(device: str, comms, spec=None, opt=None, executor=None):
     topo = make_topology("two_level", n=8, N=2, G=16, I=4) if spec is None \
         else make_topology(HierarchySpec(*spec))
     engine = HSGD(model.loss, sgd(0.08) if opt is None else opt, topo,
-                  EngineConfig(comms=comms, executor=executor))
+                  EngineConfig(comms=comms, executor=executor, **cfg))
     state = engine.init(torch.Generator().manual_seed(0), model.init,
                         device=device)
     gb = {k: torch.as_tensor(v, device=device)
@@ -624,6 +648,7 @@ def quickstart(device: str, comms, spec=None, opt=None, executor=None):
             "wire_bytes": sum(r.get("wire_bytes", 0) for r in history),
             "launches": counts, "seconds": seconds,
             "steps_per_s": 96 / seconds,
+            "runtime": engine.runtime_report(),
             "params": [p.cpu() for p in tree_leaves(gather(state.params))],
             "comms": None if state.comms is None else
             [r.cpu() for r in tree_leaves(gather(state.comms))]}
@@ -1959,6 +1984,143 @@ def experiments_phase(torch, counted):
     return rec
 
 
+# The runtime phase's codec runs in the quickstart world: (label, comms,
+# EngineConfig fields, the kernels the run must launch).  A runtime is
+# built per run (a factory), its clock per run_rounds call.
+def _runtime_runs():
+    from repro_torch.runtime import DeadlineElastic, RuntimeModel
+    return (
+        ("async int8", "int8", lambda: {"async_levels": {1: 1}},
+         ("int8_scale_quantize",)),
+        ("elastic int8", "int8", lambda: {"runtime": RuntimeModel(
+            straggler="bursty:0.25:0.5:2.5", policy=DeadlineElastic(2.0))},
+         ("int8_scale_quantize",)),
+        ("async sign", "sign", lambda: {"async_levels": {1: 1}},
+         ("sign_pack",)),
+    )
+
+
+def runtime_phase(torch, kern, ref):
+    """The runtime twin's matrix on the card and on the CPU, the host cost
+    of its three arms under two_level / bursty, and the quickstart world's
+    codec runs through the async and elastic paths (see the module
+    docstring, 11).  Returns the phase's record, with the kernels'
+    launches per run under ``launches``."""
+    from repro_torch.experiments import bench_runtime as br
+    t_phase = time.perf_counter()
+    rec = {"card": card_line()}
+    reports = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        reports[device] = br.matrix(True, device)
+        print(f"runtime twin matrix on {device}: "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    card, cpu = reports["cuda"], reports["cpu"]
+    exact = ("steps_to_target", "time_to_target_s", "makespan_at_target_s",
+             "total_sim_time_s", "final_sync_s", "dropped", "synced")
+    rows = {}
+    for tname, row in card["topologies"].items():
+        for rname in br.REGIMES:
+            for arm in ("full_barrier", "elastic", "async"):
+                a, b = row[rname][arm], cpu["topologies"][tname][rname][arm]
+                key = f"{tname}/{rname}/{arm}"
+                rows[key] = {"best_acc_cuda": a["best_acc"],
+                             "best_acc_cpu": b["best_acc"],
+                             **{k: a[k] for k in exact}}
+                diff = {k: (a[k], b[k]) for k in exact if a[k] != b[k]}
+                check(not diff, f"runtime twin {key}: card vs CPU differ "
+                      f"in {diff}")
+            check(row[rname]["target_acc"]
+                  == cpu["topologies"][tname][rname]["target_acc"],
+                  f"runtime twin {tname}/{rname}: target accuracy differs")
+    check(card["claims"] == cpu["claims"],
+          f"runtime twin: the claims differ, card {card['claims']} vs CPU "
+          f"{cpu['claims']}")
+    false = [k for k, v in card["claims"].items() if not v["holds"]]
+    check(false == RUNTIME_FALSE_CLAIMS,
+          f"runtime twin: false claims {false}, want exactly "
+          f"{RUNTIME_FALSE_CLAIMS} (the reference's own)")
+    for key, v in card["claims"].items():
+        print(f"runtime claim {key}: holds {v['holds']} "
+              f"(compared {v['compared']})", flush=True)
+    rec["twin"] = {"rows": rows, "claims": card["claims"]}
+
+    ds, model = br.make_world(n_workers=8, num_classes=4)
+    init = br.load_init_params()
+    spec, links = br.TOPOLOGIES["two_level"]
+    straggler = br.REGIMES["bursty"]
+    host = {}
+    for arm, deadline, al in (("full_barrier", None, None),
+                              ("elastic", br.DEADLINE_S, None),
+                              ("async", br.DEADLINE_S, br.STALE)):
+        walls, sps = [], []
+        for _ in range(RUNTIME_REPS):
+            t0 = time.perf_counter()
+            br.run_arm(ds, model, spec, links, straggler, deadline, 96,
+                       async_levels=al, device="cuda", init_params=init)
+            walls.append(time.perf_counter() - t0)
+            _, _, run_s = br.run_arm(ds, model, spec, links, straggler,
+                                     deadline, 96, eval_every=0,
+                                     async_levels=al, device="cuda",
+                                     init_params=init)
+            sps.append(96 / run_s)
+        host[arm] = {"wall_s": statistics.median(walls), "walls": walls,
+                     "steps_per_s": statistics.median(sps), "runs": sps}
+        print(f"runtime host cost two_level/bursty {arm}: wall "
+              f"{host[arm]['wall_s']!r} s (of {walls}), run_rounds "
+              f"{host[arm]['steps_per_s']!r} steps/s (of {sps}); "
+              f"{rec['card']}", flush=True)
+    rec["host_two_level_bursty"] = host
+
+    launches, runs = {}, {}
+    for label, comms, cfg, kernels in _runtime_runs():
+        def run(device):
+            return quickstart(device, comms, **cfg())
+        gpu = run("cuda")
+        with plain_versions(kern, ref):
+            plain = run("cuda")
+        cpu_run = run("cpu")
+        rel = abs(gpu["loss"] - cpu_run["loss"]) / abs(cpu_run["loss"])
+        dropped = None if gpu["runtime"] is None else \
+            sum(gpu["runtime"]["dropped"].values())
+        print(f"runtime path {label}: cuda loss {gpu['loss']!r} acc "
+              f"{gpu['acc']!r} wire_bytes {gpu['wire_bytes']} launches "
+              f"{gpu['launches']} dropped {dropped} {gpu['seconds']:.3f} s "
+              f"| cuda plain versions loss {plain['loss']!r} | cpu loss "
+              f"{cpu_run['loss']!r} wire_bytes {cpu_run['wire_bytes']} | "
+              f"cuda vs cpu loss relative difference {rel!r}", flush=True)
+        for name in kernels:
+            check(gpu["launches"][name] > 0,
+                  f"{label}: kernel {name} was never launched")
+            launches.setdefault(name, {})[label] = gpu["launches"][name]
+        check(not any(plain["launches"].values()),
+              f"{label}: the plain-version run launched a kernel")
+        check(all(torch.equal(a, b)
+                  for a, b in zip(gpu["params"], plain["params"]))
+              and gpu["loss"] == plain["loss"],
+              f"{label}: the kernels' trajectory differs from the plain "
+              "versions' on the card")
+        check(math.isfinite(gpu["loss"]) and rel <= LOSS_RTOL,
+              f"{label}: loss {gpu['loss']} on cuda vs {cpu_run['loss']} "
+              f"on cpu, relative difference {rel} > {LOSS_RTOL}")
+        check(gpu["wire_bytes"] == cpu_run["wire_bytes"] > 0,
+              f"{label}: wire bytes {gpu['wire_bytes']} on cuda, "
+              f"{cpu_run['wire_bytes']} on cpu")
+        if gpu["runtime"] is not None:
+            check(dropped > 0 and gpu["runtime"] == cpu_run["runtime"],
+                  f"{label}: dropped {dropped} workers, runtime report "
+                  f"{gpu['runtime']} on cuda vs {cpu_run['runtime']} on cpu")
+        runs[label] = {"loss_cuda": gpu["loss"], "loss_cpu": cpu_run["loss"],
+                       "rel": rel, "acc_cuda": gpu["acc"],
+                       "wire_bytes": gpu["wire_bytes"], "dropped": dropped,
+                       "launches": gpu["launches"],
+                       "seconds": gpu["seconds"]}
+    rec["runs"] = runs
+    rec["launches"] = launches
+    rec["wall_s"] = time.perf_counter() - t_phase
+    return rec
+
+
 def profile_phase(torch, kattn):
     """The serving profile (``--profile``); returns its numbers."""
     import dataclasses
@@ -2096,6 +2258,9 @@ def main() -> int:
         ssm_fwd = ssm_forward_phase(torch, kern, kattn, kssd, krg, ref)
         ssm_served = ssm_serving_phase(torch, kern, kattn, kssd, krg, ref)
         experiments = experiments_phase(torch, (kern, kattn, kssd, krg))
+        runtime = runtime_phase(torch, kern, ref)
+        for name, by_run in runtime["launches"].items():
+            launches[name].update(by_run)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2186,6 +2351,8 @@ def main() -> int:
     print(json.dumps({"topk_sim": topk_sim, "mesh": mesh}))
     print(json.dumps({"experiments": {k: v for k, v in experiments.items()
                                       if k != "mains"}}))
+    print(json.dumps({"runtime": {k: v for k, v in runtime.items()
+                                  if k != "launches"}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

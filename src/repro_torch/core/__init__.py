@@ -25,7 +25,8 @@ from repro_torch.core.grouping import (Grouping, contiguous,
                                        sample_participation)
 from repro_torch.core.hierarchy import HierarchySpec, local_sgd, two_level
 from repro_torch.core.hsgd import (HSGD, EngineConfig, HSGDState, Round,
-                                   compile_schedule, run)
+                                   StaleOp, StaleSlot, StaleSnap,
+                                   async_warmup, compile_schedule, run)
 from repro_torch.core.planner import (CommModel, PlanPoint,
                                       best_under_budget, enumerate_plans,
                                       fastest_under_bound, pareto_front)
@@ -35,6 +36,7 @@ from repro_torch.core.topology import (GroupedTopology, SyncEvent, Topology,
 
 __all__ = [
     "HSGD", "EngineConfig", "HSGDState", "Round", "compile_schedule", "run",
+    "StaleOp", "StaleSlot", "StaleSnap", "async_warmup",
     "Executor", "SimExecutor", "MeshExecutor", "make_executor",
     "register_executor",
     "Topology", "SyncEvent", "GroupedTopology", "UniformTopology",

@@ -16,11 +16,16 @@ of ``repro.core.executors``).
 
 Both keep the same masked-step contract (Algorithm 1: a masked-out worker's
 update is discarded, it contributes nothing and still receives the
-aggregate, and its unconsumed error-feedback residual is kept).
+aggregate, and its unconsumed error-feedback residual is kept).  The sim
+also runs the elastic-drop rounds of a runtime (``round_fn(rnd,
+masked=True)``: a dropped worker ran its local updates but neither
+contributes to nor receives the aggregate) and the stale folds of async
+execution (``Round.stale``); the mesh refuses both (ROADMAP A7d).
 """
 from __future__ import annotations
 
 import abc
+import dataclasses
 import math
 from typing import Any, Dict, Optional, Union
 
@@ -28,8 +33,8 @@ import torch
 
 from repro_torch.comms.reduce import ExactWireOps, MeshWireOps, SimWireOps
 from repro_torch.core.aggregators import Aggregator, flat_worker_index
-from repro_torch.core.hsgd import (HSGDState, Round, _merge_moments,
-                                   _moments_only)
+from repro_torch.core.hsgd import (HSGDState, Round, StaleSlot, StaleSnap,
+                                   _merge_moments, _moments_only)
 from repro_torch.core.topology import SyncEvent
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -73,16 +78,18 @@ class Executor(abc.ABC):
             self._step_fns[key] = self._build_step(event, masked)
         return self._step_fns[key]
 
-    def round_fn(self, rnd: Round):
-        if rnd not in self._round_fns:
-            self._round_fns[rnd] = self._build_round(rnd)
-        return self._round_fns[rnd]
+    def round_fn(self, rnd: Round, masked: bool = False):
+        key = (rnd, masked)
+        if key not in self._round_fns:
+            self._round_fns[key] = self._build_round(rnd, masked)
+        return self._round_fns[key]
 
     # -- the backend's hooks ----------------------------------------------
     @abc.abstractmethod
     def _apply_event(self, params, opt_state, cstate, event: SyncEvent,
-                     mask=None):
-        """One sync of this process's rows: (params, opt_state, cstate)."""
+                     mask=None, drop: bool = False):
+        """One sync of this process's rows: (params, opt_state, cstate).
+        ``drop`` is the elastic-drop semantics of a masked round."""
 
     def _own_mask(self, mask: torch.Tensor) -> torch.Tensor:
         """The entries of an (n,) mask for this process's rows."""
@@ -121,31 +128,94 @@ class Executor(abc.ABC):
             metrics = {k: v[0] for k, v in
                        self._metric_means([metrics]).items()}
             return HSGDState(params, opt_state, state.step + 1,
-                             cstate), metrics
+                             cstate, state.pending), metrics
 
         return step
 
-    def _build_round(self, rnd: Round):
+    def _build_round(self, rnd: Round, masked: bool = False):
         """'``n_local`` local steps then sync' as one call: the same
         per-step operations as ``n_local`` calls of the step body, so the
-        trajectory is bitwise that of :meth:`HSGD.step`."""
-        vupdate = self._vupdate()
+        trajectory is bitwise that of :meth:`HSGD.step`.
 
-        def round_fn(state: HSGDState, batches):
-            """batches: a length-``n_local`` tuple of per-step batches."""
+        ``masked=True`` builds the elastic-drop variant ``(state, batches,
+        mask)``: every worker runs the local block (a dropped worker was
+        computing, not absent), and the round's sync runs with drop
+        semantics (see :meth:`SimExecutor._apply_event`).  A round with
+        stale ops folds what is due and snapshots (:meth:`_stale_fold`); a
+        flush boundary's fresh sync applies after its folds, and a drop
+        restores the pre-boundary state once, so that a dropped worker
+        misses the folds, the snapshot roll and the fresh aggregate alike."""
+        vupdate = self._vupdate()
+        if masked:
+            assert rnd.event is not None, \
+                "a masked round needs a sync event to drop workers from"
+
+        def round_fn(state: HSGDState, batches, mask=None):
+            """batches: a length-``n_local`` tuple of per-step batches;
+            mask: the (n,) bool tensor of a masked round."""
             params, opt_state = state.params, state.opt_state
             per_step = []
             for batch in batches:
                 params, opt_state, metrics = vupdate(params, opt_state, batch)
                 per_step.append(metrics)
-            cstate = state.comms
-            if rnd.event is not None:
+            cstate, pending = state.comms, state.pending
+            if rnd.event is not None and rnd.stale:
+                p0, o0, c0, pend0 = params, opt_state, cstate, pending
+                params, opt_state, pending = self._stale_fold(
+                    params, opt_state, pending, rnd.stale, mask)
+                if not rnd.stale[-1].snapshot:
+                    params, opt_state, cstate = self._apply_event(
+                        params, opt_state, cstate, rnd.event, mask=mask)
+                if masked:
+                    keep = self._own_mask(mask)
+                    params = _keep_rows(keep, params, p0)
+                    opt_state = _keep_rows(keep, opt_state, o0)
+                    if cstate is not None:
+                        cstate = _keep_rows(keep, cstate, c0)
+                    pending = _keep_pending(keep, pending, pend0)
+            elif rnd.event is not None:
                 params, opt_state, cstate = self._apply_event(
-                    params, opt_state, cstate, rnd.event)
+                    params, opt_state, cstate, rnd.event, mask=mask,
+                    drop=masked)
             return HSGDState(params, opt_state, state.step + rnd.n_local,
-                             cstate), self._metric_means(per_step)
+                             cstate, pending), self._metric_means(per_step)
 
         return round_fn
+
+    def _stale_fold(self, params, opt_state, pending, ops, mask):
+        """Apply one boundary's static :class:`~repro_torch.core.hsgd.
+        StaleOp`s: each fold applies a stored snapshot's POSTED aggregate
+        to the live state as an elementwise delta (:func:`_stale_delta`);
+        a ``snapshot`` op then runs the level's aggregation on the
+        post-fold payload, through the same :meth:`_apply_event` a fresh
+        sync takes (codecs, wire eligibility and masked-residual keeping
+        included, against the SLOT's own residual chain), and captures
+        payload and aggregate into the newest slot.  Aggregating at
+        posting time pins each outstanding sync to the participation mask
+        of the boundary that posted it.  Returns ``(params, opt_state,
+        pending)``; the reference's staleness probe is ROADMAP A7b."""
+        agg_opt = self.plan.aggregate_opt_state
+        pending = dict(pending)
+        for op in ops:
+            slot = pending[op.level]
+            snaps, res = list(slot.snaps), slot.residual
+            s = len(snaps)
+            for j in range(op.n_fold):
+                snap = snaps[s - op.warm + j]
+                params = _stale_delta(params, snap.agg, snap.params)
+                if agg_opt:
+                    opt_state = _merge_moments(opt_state, _stale_delta(
+                        _moments_only(opt_state), snap.agg_opt, snap.opt))
+            if op.snapshot:
+                base_o = _moments_only(opt_state) if agg_opt else {}
+                new_p, new_o, res = self._apply_event(
+                    params, base_o, res, SyncEvent(level=op.level),
+                    mask=mask)
+                snaps = snaps[1:] + [StaleSnap(
+                    params, base_o, new_p,
+                    _moments_only(new_o) if agg_opt else {})]
+            pending[op.level] = StaleSlot(tuple(snaps), res)
+        return params, opt_state, pending
 
 
 def _wire_eligible(plan, event: SyncEvent) -> bool:
@@ -202,6 +272,28 @@ def _keep_rows(mask: torch.Tensor, new, old):
     return tree_map(sel, new, old)
 
 
+def _keep_pending(mask: torch.Tensor, new, old):
+    """:func:`_keep_rows` over the pending stale slots ({level:
+    StaleSlot}), field by field: the tree helpers walk dicts only, and a
+    slot's residual is None without a stateful codec."""
+    def slot(a: StaleSlot, b: StaleSlot) -> StaleSlot:
+        snaps = tuple(StaleSnap(*(_keep_rows(mask, getattr(x, f.name),
+                                             getattr(y, f.name))
+                                  for f in dataclasses.fields(StaleSnap)))
+                      for x, y in zip(a.snaps, b.snaps))
+        res = None if a.residual is None else \
+            _keep_rows(mask, a.residual, b.residual)
+        return StaleSlot(snaps, res)
+    return {lvl: slot(new[lvl], old[lvl]) for lvl in new}
+
+
+def _stale_delta(live, agg, snap):
+    """The stale-sync fold: the aggregate was computed on ``snap`` and the
+    live state has moved on since, so the aggregation applies as a
+    correction, ``live + (agg - snap)``, elementwise per worker row."""
+    return tree_map(lambda a, b, c: a + (b - c), live, agg, snap)
+
+
 class SimExecutor(Executor):
     """n workers on one device; aggregations are reshape means (uniform
     hierarchy) or membership segment means (arbitrary groupings) through
@@ -209,10 +301,18 @@ class SimExecutor(Executor):
 
     ``step_fn(event, masked=True)`` is Algorithm-1 partial participation: a
     masked-out worker's update is discarded and it still receives the
-    aggregate."""
+    aggregate.  ``round_fn(rnd, masked=True)`` is the elastic-drop
+    semantics: a dropped worker ran its local updates but neither
+    contributes to nor receives the aggregate, keeping its exact
+    post-update params, opt state, unconsumed residuals and stale slots."""
 
     def _apply_event(self, params, opt_state, cstate, event: SyncEvent,
-                     mask=None):
+                     mask=None, drop: bool = False):
+        """``mask`` weights the aggregation over participating workers.
+        ``drop=False``: masked-out workers still RECEIVE the aggregate
+        (Algorithm 1).  ``drop=True``: they neither contribute nor receive
+        — they keep their post-update params, opt state and unconsumed
+        residuals."""
         plan = self.plan
         reduce_fn = lambda tree: plan.topology.aggregate(tree, event,
                                                          mask=mask)
@@ -220,6 +320,11 @@ class SimExecutor(Executor):
                           mask) if _wire_eligible(plan, event) else None
         new_p, new_o, new_c = _apply_sync(plan, reduce_fn, params, opt_state,
                                           cstate, wire=wire)
+        if drop:
+            new_p = _keep_rows(mask, new_p, params)
+            new_o = _keep_rows(mask, new_o, opt_state)
+            if cstate is not None:
+                new_c = _keep_rows(mask, new_c, cstate)
         if plan.comms is not None:
             # topology.aggregate keeps non-participants' rows untouched, but
             # the comms path hands it codec-roundtripped payloads — restore
@@ -265,8 +370,11 @@ class MeshExecutor(Executor):
     local work (verification mode); the production lowering matches sim
     to accumulation rounding.
 
-    ``step_fn(event, masked=True)`` is Algorithm 1, as on sim; the elastic
-    drop rounds (runtime) and the stale fold (async) are ROADMAP A7."""
+    ``step_fn(event, masked=True)`` is Algorithm 1, as on sim.  The
+    elastic drop rounds (a runtime whose policy drops someone) and the
+    stale fold (async levels) are ROADMAP A7d: the mesh refuses an engine
+    with async levels at bind and a masked round at ``round_fn``.  A
+    runtime that drops nobody runs unchanged: its clock is on the host."""
 
     def __init__(self, mesh=None, *, exact: bool = False):
         super().__init__()
@@ -306,6 +414,18 @@ class MeshExecutor(Executor):
                 f"need a mesh of {topo.n} workers, got "
                 f"{dict(zip(self.mesh.axis_names, sizes))}")
         self.widx = flat_worker_index(self.mesh)
+        if self.plan.async_levels:
+            raise NotImplementedError(
+                "the mesh executor has no stale fold yet (ROADMAP A7d): run "
+                "async_levels on the sim executor")
+
+    def _build_round(self, rnd: Round, masked: bool = False):
+        if masked:
+            raise NotImplementedError(
+                "the mesh executor has no elastic drop rounds yet (ROADMAP "
+                "A7d): run a runtime whose policy drops workers on the sim "
+                "executor")
+        return super()._build_round(rnd)
 
     # -- layout ---------------------------------------------------------------
     def _row(self, tree):
@@ -363,7 +483,8 @@ class MeshExecutor(Executor):
 
     # -- the sync of one event, for this rank's row ---------------------------
     def _apply_event(self, params, opt_state, cstate, event: SyncEvent,
-                     mask=None):
+                     mask=None, drop: bool = False):
+        assert not drop, "drop rounds are refused by _build_round (A7d)"
         plan, mesh, widx = self.plan, self.mesh, self.widx
         topo = plan.topology
         wire = None

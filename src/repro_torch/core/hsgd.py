@@ -17,9 +17,14 @@ State layout: every worker owns a full model replica; ``params``,
 costs no device sync).
 
 Ported here: the barrier engine with comms and error feedback, on the sim
-and mesh executors.  Subsystems of the JAX engine that are not ported raise
+and mesh executors; the simulated runtime (``EngineConfig.runtime``: per-
+worker straggler clocks, per-level link costs, elastic deadline drops as
+masked rounds) and async stale-sync execution (``EngineConfig.
+async_levels``: posted snapshots folded as elementwise deltas), on the sim
+executor.  Subsystems of the JAX engine that are not ported raise
 ``NotImplementedError`` naming the ROADMAP item that will port them:
-``runtime``, ``metrics``, ``population`` and ``async_levels`` (A7).
+``metrics`` (A7b) and ``population`` (A7c); the mesh executor refuses drop
+rounds and stale folds (A7d).
 """
 from __future__ import annotations
 
@@ -29,6 +34,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.core.topology import SyncEvent, Topology
+from repro_torch.runtime import make_runtime
 from repro_torch.device import DeviceLike, recip_f32, resolve_device
 from repro_torch.optim.optimizers import Optimizer
 from repro_torch.tree import tree_leaves, tree_map
@@ -47,44 +53,157 @@ class EngineConfig:
     population: Any = None
     aggregate_opt_state: bool = True
     accum_steps: int = 1
+    # async (stale-sync) execution: {level: staleness} — a level-l aggregate
+    # is applied ``staleness`` level-l boundaries late.  staleness=0 entries
+    # are dropped at construction, so {1: 0} is the barrier path bit for bit
     async_levels: Any = None
 
 
 # EngineConfig fields whose subsystems are not ported yet -> ROADMAP item
-_NOT_PORTED = {"runtime": "A7", "metrics": "A7", "population": "A7",
-               "async_levels": "A7"}
+_NOT_PORTED = {"metrics": "A7b", "population": "A7c"}
 
 
 @dataclasses.dataclass
 class HSGDState:
-    """Engine state.  The JAX package's ``metrics`` and ``pending`` fields
-    belong to subsystems not ported yet."""
+    """Engine state.  The JAX package's ``metrics`` field belongs to a
+    subsystem not ported yet (A7b)."""
     params: Any      # leading worker axis n
     opt_state: Any   # leading worker axis n
     step: int        # steps taken
     comms: Any = None  # error-feedback residuals (stateful codecs), axis n
+    pending: Any = None  # stale-sync slots ({level: StaleSlot}) under async
+    #   execution; None without async levels
+
+
+@dataclasses.dataclass
+class StaleSnap:
+    """One deferred sync payload, aggregated AT POSTING TIME: the post-fold
+    worker params (and, when the engine aggregates optimizer state, the
+    moments) captured at a stale level-l boundary, with the level-l
+    aggregate of that very payload.  The later fold is then elementwise
+    (``live + (agg - params)``): no cross-worker op runs at fold time, so a
+    worker dropped at an intermediate boundary folds exactly the aggregate
+    it holds.  Leaves keep the leading worker axis n.  A snapshot holds the
+    very tensors the live state held when it was posted, which is safe
+    because nothing on the engine's path updates a tensor in place."""
+    params: Any
+    opt: Any       # moments dict ({} when nothing rides the sync)
+    agg: Any       # level-l aggregate of ``params``, posted with this snap
+    agg_opt: Any   # level-l aggregate of ``opt`` ({} when empty)
+
+
+@dataclasses.dataclass
+class StaleSlot:
+    """One async level's pending state: a rolling tuple of ``staleness``
+    snapshots plus the level's OWN error-feedback residual chain (None
+    without a stateful codec).  The live ``HSGDState.comms`` residual is
+    never consumed by a stale fold, so fresh and stale syncs keep disjoint
+    error-feedback streams."""
+    snaps: Tuple[Any, ...]
+    residual: Any = None
+
+
+@dataclasses.dataclass(frozen=True)
+class StaleOp:
+    """One async level's static work at a round-ending sync boundary
+    (computed by :func:`compile_schedule` from the schedule alone, so it is
+    part of the hashable ``Round`` cache key):
+
+    * fold the ``n_fold`` OLDEST outstanding snapshots of ``level`` into
+      the live state (``live + (snap.agg - snap.params)``, elementwise) —
+      ``warm`` is the number of snapshots outstanding BEFORE this op, so
+      the oldest lives at slot index ``staleness - warm`` of the tuple;
+    * then, when ``snapshot`` (the boundary is a level-``level`` event),
+      run the level-``level`` aggregation on the post-fold payload and
+      capture payload and aggregate into the newest slot.
+
+    A boundary of a MORE global event (event.level < level) is a flush:
+    ``n_fold == warm`` outstanding snapshots fold, nothing is captured,
+    and the warm-up restarts."""
+    level: int
+    n_fold: int
+    warm: int
+    snapshot: bool
 
 
 @dataclasses.dataclass(frozen=True)
 class Round:
     """``n_local`` local updates, the last one followed by ``event`` (None
     for a round that ends between syncs — a schedule tail, or a cut forced
-    by ``cut_every``)."""
+    by ``cut_every``).  ``stale`` carries the boundary's static async ops
+    (:class:`StaleOp`, outermost last, so flushes of deeper levels apply
+    first); empty for every barrier-synchronous schedule."""
     n_local: int
     event: Optional[SyncEvent]
+    stale: Tuple[StaleOp, ...] = ()
 
 
-def compile_schedule(schedule, cut_every: int = 0,
-                     t0: int = 0) -> Tuple[Round, ...]:
+def _boundary_ops(event: SyncEvent, async_levels: Dict[int, int],
+                  warm: Dict[int, int]) -> Tuple[StaleOp, ...]:
+    """The static stale ops one sync event triggers, updating the warm-up
+    counters in place.  Deeper (more local) levels first: their outstanding
+    folds are older information, and the event's own op — the only one
+    that snapshots — comes last."""
+    ops: List[StaleOp] = []
+    for lvl in sorted(async_levels, reverse=True):
+        if event.level > lvl:
+            continue               # not a level-lvl boundary
+        s = async_levels[lvl]
+        if event.level < lvl:      # more global event: flush, restart warmup
+            if warm[lvl]:
+                ops.append(StaleOp(lvl, warm[lvl], warm[lvl], False))
+                warm[lvl] = 0
+        else:                      # the level's own boundary
+            if event.groups is not None or event.weights is not None:
+                raise ValueError(
+                    f"async level {lvl} requires full level-{lvl} events; "
+                    f"got a partial/weighted event {event} — stale folds "
+                    "have no per-boundary group structure to replay")
+            nf = 1 if warm[lvl] >= s else 0
+            ops.append(StaleOp(lvl, nf, warm[lvl], True))
+            warm[lvl] += 1 - nf
+    return tuple(ops)
+
+
+def async_warmup(schedule, async_levels: Dict[int, int]) -> Dict[int, int]:
+    """Replay a schedule prefix's warm-up counters (how many snapshots each
+    async level has outstanding after those events): what ``run_rounds``
+    uses to resume a trajectory at t0 > 0 with the pending slots already
+    carrying state."""
+    warm = {lvl: 0 for lvl in async_levels}
+    for ev in schedule:
+        if ev is not None:
+            _boundary_ops(ev, async_levels, warm)
+    return warm
+
+
+def compile_schedule(schedule, cut_every: int = 0, t0: int = 0,
+                     async_levels: Optional[Dict[int, int]] = None,
+                     warm0: Optional[Dict[int, int]] = None
+                     ) -> Tuple[Round, ...]:
     """Fold a per-step event schedule into maximal pure-local rounds.
     ``cut_every`` additionally ends a round at every absolute step that is
-    a multiple of it (``t0`` = absolute step of ``schedule[0]``)."""
+    a multiple of it (``t0`` = absolute step of ``schedule[0]``).
+
+    ``async_levels`` ({level: staleness}, entries all >= 1) annotates each
+    sync round with its :class:`StaleOp`s: the first ``staleness`` level-l
+    boundaries only snapshot (warm-up), every later one folds the oldest
+    snapshot and captures a new one, and a more global event flushes the
+    level's outstanding snapshots first.  ``warm0`` seeds the warm-up
+    counters when the schedule is a suffix (:func:`async_warmup` over the
+    prefix)."""
     rounds: List[Round] = []
+    alv = dict(async_levels) if async_levels else {}
+    warm = {lvl: 0 for lvl in alv}
+    if warm0:
+        warm.update(warm0)
     k = 0
     for i, ev in enumerate(schedule):
         k += 1
         if ev is not None or (cut_every and (t0 + i + 1) % cut_every == 0):
-            rounds.append(Round(k, ev))
+            stale = _boundary_ops(ev, alv, warm) \
+                if (alv and ev is not None) else ()
+            rounds.append(Round(k, ev, stale))
             k = 0
     if k:
         rounds.append(Round(k, None))
@@ -115,12 +234,55 @@ class HSGD:
         self.config = config
         self.aggregate_opt_state = config.aggregate_opt_state
         self.accum_steps = config.accum_steps
+        self.async_levels = self._normalize_async(config.async_levels)
         # local imports: executors imports this module for HSGDState/Round
         from repro_torch.comms.sync import make_comms
         self.comms = make_comms(config.comms)
+        self.runtime = make_runtime(config.runtime)
+        self._last_clock = None
         from repro_torch.core.executors import make_executor
         self.executor = make_executor(config.executor)
         self.executor.bind(self)
+
+    def _normalize_async(self, raw) -> Dict[int, int]:
+        """Validate ``EngineConfig.async_levels`` against the topology:
+        integer levels within the hierarchy, staleness >= 0, and zero
+        entries dropped, so that they are the barrier path bit for bit by
+        construction (same Rounds, no pending slots in the state)."""
+        if not raw:
+            return {}
+        out: Dict[int, int] = {}
+        num_levels = len(self.topology.periods)
+        for lvl, s in dict(raw).items():
+            lvl, s = int(lvl), int(s)
+            if not 1 <= lvl <= num_levels:
+                raise ValueError(
+                    f"async_levels level {lvl} outside the hierarchy "
+                    f"(levels 1..{num_levels})")
+            if s < 0:
+                raise ValueError(f"async_levels[{lvl}] = {s}: staleness "
+                                 "must be >= 0")
+            if s == 0:
+                continue  # the barrier path
+            if self.topology.participants(SyncEvent(level=lvl)) is not None:
+                raise ValueError(
+                    f"async level {lvl} requires every level-{lvl} event to "
+                    f"cover all workers; {type(self.topology).__name__} "
+                    "scopes them to a static subset (partial-group events "
+                    "have no stale-fold semantics)")
+            out[lvl] = s
+        return out
+
+    def participation(self, clock=None):
+        """This engine's composed Participation view: the topology's static
+        event masks, plus the elastic adapter over ``clock`` when one is
+        passed.  (The reference's ``extra`` part, the population sampler,
+        is ROADMAP A7c.)"""
+        from repro_torch.population import (ElasticParticipation,
+                                            StaticParticipation, compose)
+        return compose(StaticParticipation(self.topology),
+                       ElasticParticipation(clock)
+                       if clock is not None else None)
 
     # -- init ---------------------------------------------------------------
     def init(self, generator: torch.Generator, model_init: Callable, *,
@@ -141,8 +303,28 @@ class HSGD:
         n = self.topology.n
         params = _replicate(params0, n)
         cstate = self.comms.init_state(params) if self.comms else None
+        opt_state = _replicate(self.optimizer.init(params0), n)
         return self.executor.place(HSGDState(
-            params, _replicate(self.optimizer.init(params0), n), 0, cstate))
+            params, opt_state, 0, cstate,
+            self._init_pending(params, opt_state)))
+
+    def _init_pending(self, params, opt_state) -> Optional[Dict]:
+        """Zero-filled stale slots, one :class:`StaleSlot` per async level:
+        ``staleness`` snapshots (params and the moments a sync ships) and
+        the level's own error-feedback residual.  The warm-up never reads
+        the zeros (each :class:`StaleOp`'s fold count is static)."""
+        if not self.async_levels:
+            return None
+        zeros = lambda tree: tree_map(torch.zeros_like, tree)
+        moments = _moments_only(opt_state) if self.aggregate_opt_state else {}
+        pending: Dict[int, StaleSlot] = {}
+        for lvl, s in sorted(self.async_levels.items()):
+            snaps = tuple(StaleSnap(zeros(params), zeros(moments),
+                                    zeros(params), zeros(moments))
+                          for _ in range(s))
+            res = self.comms.init_state(params) if self.comms else None
+            pending[lvl] = StaleSlot(snaps, res)
+        return pending
 
     # -- building blocks ------------------------------------------------------
     def local_update_fn(self):
@@ -186,8 +368,12 @@ class HSGD:
     def step_fn(self, event: Optional[SyncEvent], masked: bool = False):
         return self.executor.step_fn(event, masked)
 
-    def round_fn(self, rnd: Round):
-        return self.executor.round_fn(rnd)
+    def round_fn(self, rnd: Round, masked: bool = False):
+        """The executor's function for one round; ``masked=True`` is the
+        elastic-drop variant ``(state, batches, mask)``: every worker runs
+        its local updates, and workers masked out of the round's sync
+        neither contribute to nor receive the aggregate."""
+        return self.executor.round_fn(rnd, masked)
 
     def _on_device(self, batch, state: HSGDState):
         """The (n, ...) batch's rows that this process's workers take (all
@@ -201,6 +387,11 @@ class HSGD:
         """One step.  mask: optional (n,) bool — partial worker
         participation (Algorithm 1: a masked-out worker's update is
         discarded and it still receives the aggregate)."""
+        if self.async_levels:
+            raise NotImplementedError(
+                "the per-step path has no stale-apply offsets (they are "
+                "compiled per Round); run async engines through "
+                "run_rounds, or drop async_levels from the EngineConfig")
         event = self.topology.event_at(state.step)
         batch = self._on_device(batch, state)
         if mask is None:
@@ -223,24 +414,64 @@ class HSGD:
         ``eval_every`` the schedule is also cut every ``eval_every`` steps
         so ``eval_fn(state, t)`` fires exactly there (and at the end).  With
         comms on, every record carries ``wire_bytes`` — the bytes that
-        step's sync moved (0 between syncs), computed statically."""
+        step's sync moved (0 between syncs), computed statically.
+
+        With a runtime bound, every record also carries ``sim_time_s`` (the
+        simulated makespan after that step, rounded to 6 places) and
+        ``sim_sync_s`` (cumulative per-level link seconds), and every sync
+        step ``dropped`` (the workers the policy cut from that barrier):
+        host-side numpy, no device work.  A round whose sync drops someone
+        runs through ``round_fn(rnd, masked=True)``, the mask moved to the
+        device once.  With ``async_levels``, the rounds carry their static
+        stale ops, resumed at t0 > 0 through :func:`async_warmup`."""
         t0 = state.step
         cut = eval_every if (eval_fn is not None and eval_every) else 0
-        schedule = self.topology.schedule(t0 + T)[t0:]
-        rounds = compile_schedule(schedule, cut_every=cut, t0=t0)
+        full = self.topology.schedule(t0 + T)
+        schedule = full[t0:]
+        warm0 = async_warmup(full[:t0], self.async_levels) \
+            if (self.async_levels and t0) else None
+        rounds = compile_schedule(schedule, cut_every=cut, t0=t0,
+                                  async_levels=self.async_levels or None,
+                                  warm0=warm0)
         wire = None
         if self.comms is not None:
             ws = self.wire_stats(state)
             wire = [ws.bytes_for_event(ev) for ev in schedule]
+        clock = None
+        sim: List[Tuple[float, Dict[str, float]]] = []  # per-step snapshots
+        if self.runtime is not None:
+            clock = self.runtime.clock(self.topology,
+                                       self._payload_nbytes(state),
+                                       async_levels=self.async_levels or None)
+            self._last_clock = clock
+        parts = self.participation(clock=clock) if clock is not None \
+            else None
+        dev = tree_leaves(state.params)[0].device
+        drops: Dict[int, int] = {}
         raw: List[Tuple[int, int, Dict]] = []  # (t_end, n_local, metrics)
         evals: Dict[int, Dict] = {}
         t = t0
         for rnd in rounds:
             batches = tuple(self._on_device(batch_fn(t + i), state)
                             for i in range(rnd.n_local))
-            state, metrics = self.round_fn(rnd)(state, batches)
+            mask = None
+            if clock is not None:
+                for i in range(rnd.n_local):
+                    clock.advance(t + i)
+                    sim.append((clock.time_s, clock.level_seconds()))
+                if rnd.event is not None:
+                    mask = parts.round_mask(rnd.event)
+                    # the sync belongs to the round's last step
+                    sim[-1] = (clock.time_s, clock.level_seconds())
+            if mask is None:
+                state, metrics = self.round_fn(rnd)(state, batches)
+            else:
+                state, metrics = self.round_fn(rnd, masked=True)(
+                    state, batches, torch.as_tensor(mask, device=dev))
             t += rnd.n_local
             raw.append((t, rnd.n_local, metrics))
+            if clock is not None and rnd.event is not None:
+                drops[t] = 0 if mask is None else int((~mask).sum())
             if eval_fn is not None and eval_every and \
                     (t % eval_every == 0 or t == t0 + T):
                 evals[t] = eval_fn(state, t - 1)
@@ -254,6 +485,12 @@ class HSGD:
                        **{k: float(v[i]) for k, v in vals.items()}}
                 if wire is not None:
                     rec["wire_bytes"] = wire[step_no - t0 - 1]
+                if clock is not None:
+                    time_s, sync_s = sim[step_no - t0 - 1]
+                    rec["sim_time_s"] = round(time_s, 6)
+                    rec["sim_sync_s"] = sync_s
+                    if step_no in drops:
+                        rec["dropped"] = drops[step_no]
                 rec.update(evals.get(step_no, {}))
                 history.append(rec)
         return state, history
@@ -280,6 +517,28 @@ class HSGD:
                         for a in arrays]
             n_elements += n
         return WireStats(self.topology, tuple(payload), n_elements)
+
+    def _payload_nbytes(self, state: HSGDState) -> int:
+        """Per-worker bytes ONE sync payload puts on the wire, which the
+        runtime clock prices: the encoded codec payload with comms on, else
+        the raw bytes of everything a sync ships (params and aggregated
+        optimizer moments)."""
+        if self.comms is not None:
+            return self.wire_stats(state).payload_bytes
+        parts = [state.params]
+        if self.aggregate_opt_state:
+            parts.append(_moments_only(state.opt_state))
+        return sum(x.nbytes // x.shape[0]
+                   for tree in parts for x in tree_leaves(tree))
+
+    def runtime_report(self, state: Optional[HSGDState] = None):
+        """The last :meth:`run_rounds` clock's breakdown (simulated
+        makespan, per-level sync seconds, drop counts, ...), or None before
+        any run with a runtime.  ``state`` is accepted for symmetry with
+        :meth:`wire_stats` and unused."""
+        if self._last_clock is None:
+            return None
+        return self._last_clock.breakdown()
 
     def mean_params(self, state: HSGDState):
         """w̄^t (the analysis object; observable only at t = aG).  Under the

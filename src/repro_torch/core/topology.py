@@ -7,7 +7,10 @@ A ``Topology`` answers:
   fired after the local update of step ``t``;
 * ``aggregate(tree, event, mask)`` — apply the event to a worker-stacked
   tree of tensors (leading axis n) through the installed ``Aggregator``;
-* ``participants(event)`` — the workers whose state the event replaces.
+* ``participants(event)`` — the workers whose state the event replaces
+  (``participation()`` is its view on the Participation protocol);
+* ``level_groupings()`` — the worker partition at every internal level
+  (the runtime clock's barrier subtrees).
 
 ``UniformTopology`` (a ``HierarchySpec``; reshape-based means) and
 ``GroupedTopology`` (an explicit, possibly non-uniform ``Grouping`` with
@@ -20,7 +23,7 @@ from __future__ import annotations
 
 import abc
 import dataclasses
-from typing import Optional, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -29,7 +32,7 @@ from repro_torch.core.aggregators import (Aggregator, AggregatorLike,
                                           axis_weighted_mean,
                                           denominator_floor, make_aggregator,
                                           segment_weighted_mean)
-from repro_torch.core.grouping import Grouping
+from repro_torch.core.grouping import Grouping, contiguous
 from repro_torch.core.hierarchy import HierarchySpec, local_sgd, two_level
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -85,6 +88,18 @@ class Topology(abc.ABC):
         None for all of them."""
         return None
 
+    def participation(self):
+        """This topology's static view of the Participation protocol
+        (``event_mask == participants``; the dynamic scopes stay open)."""
+        from repro_torch.population import StaticParticipation
+        return StaticParticipation(self)
+
+    def level_groupings(self) -> Dict[int, Grouping]:
+        """Worker partition into the level-ℓ subtrees, for every internal
+        level ℓ (the runtime clock builds its barrier subtrees from it).
+        May be empty (single-level schedules have no internal grouping)."""
+        return {}
+
     def level_axes(self, event: SyncEvent,
                    axis_names: Tuple[str, ...]) -> Tuple[str, ...]:
         """The mesh axes whose group realizes ``event``: for a uniform
@@ -137,6 +152,10 @@ class UniformTopology(Topology):
     def event_at(self, t: int) -> Optional[SyncEvent]:
         lvl = self.spec.sync_level(t)
         return None if lvl is None else SyncEvent(level=lvl)
+
+    def level_groupings(self) -> Dict[int, Grouping]:
+        return {l: contiguous(self.n, self.spec.n_at_level(l))
+                for l in range(1, self.spec.num_levels)}
 
     def aggregate(self, tree, event: SyncEvent, mask=None):
         gs = tuple(self.spec.group_sizes)
@@ -210,6 +229,9 @@ class GroupedTopology(Topology):
         if all(groups):
             return SyncEvent(level=2)
         return SyncEvent(level=2, groups=groups)
+
+    def level_groupings(self) -> Dict[int, Grouping]:
+        return {1: self.grouping}
 
     def participants(self, event: SyncEvent) -> Optional[np.ndarray]:
         if event.level == 1 or event.groups is None:

@@ -1,0 +1,412 @@
+"""Async H-SGD (stale-sync execution) in the port, against the JAX package
+and against its own barrier path.
+
+Against the reference: the static plan (``compile_schedule``'s
+``StaleOp``s and ``async_warmup``'s counts) field for field; trajectories
+from the reference's initial params within RTOL = 1e-5 relative (losses;
+params and the pending snapshots too, except where the reference is
+ill-conditioned, see ``test_async_trajectory_matches_reference``) for four
+async settings under no codec,
+int8 and sign, with momentum (the moments ride the stale sync), composed
+with an elastic runtime (simulated times and drops exactly), and the async
+clock removing the global barrier time (times exactly).
+
+Inside the port, bit for bit: staleness 0 is the barrier path, the stale
+fold is the hand oracle ``live + (agg - params)``, a run split at a
+posting boundary resumes exactly, a codec's stale residual chain stays
+apart from the live one, and a worker dropped at a stale boundary keeps
+its params, opt state and pending rows.  Refusals: ``step`` on an async
+engine, invalid ``async_levels``, and the mesh executor (ROADMAP A7d).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+import repro.core as J  # noqa: E402
+import repro.optim as JO  # noqa: E402
+import repro.runtime as JR  # noqa: E402
+from repro.models import SimpleConfig as JConfig  # noqa: E402
+from repro.models import SimpleModel as JModel  # noqa: E402
+
+import repro_torch.comms as PC  # noqa: E402
+import repro_torch.core as P  # noqa: E402
+import repro_torch.optim as PO  # noqa: E402
+import repro_torch.runtime as PR  # noqa: E402
+from repro_torch.data import (FederatedDataset, label_shard_partition,  # noqa: E402
+                              make_classification)
+from repro_torch.models import (SimpleConfig, SimpleModel,  # noqa: E402
+                                params_from_numpy)
+from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
+
+RTOL = 1e-5
+MODEL = dict(kind="mlp", input_dim=24, hidden=32, num_classes=8)
+SPEC = ((2, 4), (16, 4))   # G=16, I=4
+
+
+def _data():
+    x, y = make_classification(seed=0, num_classes=8, dim=24, per_class=80)
+    return FederatedDataset(x, y, label_shard_partition(
+        y, [[j] for j in range(8)], n_workers=8))
+
+
+DS = _data()
+
+
+def _batch_j(t):
+    return jax.tree.map(jnp.asarray, DS.batch(t, 10))
+
+
+def _batch_p(t):
+    return DS.batch(t, 10)
+
+
+def _engines(cfg, opt=None, spec=SPEC, runtimes=(None, None)):
+    opt = opt or (JO.sgd(0.08), PO.sgd(0.08))
+    jm, pm = JModel(JConfig(**MODEL)), SimpleModel(SimpleConfig(**MODEL))
+    je = J.HSGD(jm.loss, opt[0], J.make_topology(J.HierarchySpec(*spec)),
+                J.EngineConfig(runtime=runtimes[0], **cfg))
+    pe = P.HSGD(pm.loss, opt[1], P.make_topology(P.HierarchySpec(*spec)),
+                P.EngineConfig(runtime=runtimes[1], **cfg))
+    p0 = jax.device_get(jm.init(jax.random.PRNGKey(0)))
+    js = je.init(jax.random.PRNGKey(0), jm.init)
+    ps = pe.init_from_params(params_from_numpy(p0, device="cpu"),
+                             device="cpu")
+    return je, js, pe, ps
+
+
+def _port(cfg=None, opt=None, spec=SPEC):
+    pm = SimpleModel(SimpleConfig(**MODEL))
+    eng = P.HSGD(pm.loss, opt or PO.sgd(0.05),
+                 P.make_topology(P.HierarchySpec(*spec)),
+                 P.EngineConfig(**(cfg or {})))
+    st = eng.init(torch.Generator().manual_seed(0), pm.init, device="cpu")
+    return eng, st
+
+
+def _close(got, want):
+    for g, w in zip(tree_leaves(got), jax.tree.leaves(jax.device_get(want))):
+        w = np.asarray(w)
+        err = np.abs(g.numpy() - w).max()
+        assert err <= RTOL * max(np.abs(w).max(), 1e-30), err
+
+
+def _equal(a, b):
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y)
+                                      for x, y in zip(la, lb))
+
+
+# ---------------------------------------------------------------------------
+# the static plan, field for field
+# ---------------------------------------------------------------------------
+def _ops(rounds):
+    return [(r.n_local, None if r.event is None else r.event.level,
+             [(o.level, o.n_fold, o.warm, o.snapshot) for o in r.stale])
+            for r in rounds]
+
+
+@pytest.mark.parametrize("al", [{2: 1}, {1: 1}, {1: 1, 2: 1}, {1: 2},
+                                {2: 3}, {1: 2, 2: 2}])
+def test_stale_ops_and_warmup_equal_reference(al):
+    for spec in (SPEC, ((2, 2, 2), (8, 4, 2))):
+        jt = J.make_topology(J.HierarchySpec(*spec))
+        pt = P.make_topology(P.HierarchySpec(*spec))
+        if max(al) > len(spec[0]):
+            continue
+        for t0, T, cut in ((0, 64, 0), (12, 40, 5), (16, 48, 8)):
+            js, ps = jt.schedule(t0 + T), pt.schedule(t0 + T)
+            jw = J.async_warmup(js[:t0], al)
+            pw = P.async_warmup(ps[:t0], al)
+            assert jw == pw
+            jr = J.compile_schedule(js[t0:], cut_every=cut, t0=t0,
+                                    async_levels=al, warm0=jw)
+            pr = P.compile_schedule(ps[t0:], cut_every=cut, t0=t0,
+                                    async_levels=al, warm0=pw)
+            assert _ops(pr) == _ops(jr)
+    op = P.StaleOp(level=2, n_fold=1, warm=1, snapshot=True)
+    r = P.Round(4, P.SyncEvent(level=1), stale=(op,))
+    assert hash(r) == hash(P.Round(4, P.SyncEvent(level=1), stale=(op,)))
+    assert P.Round(4, None).stale == ()
+
+
+# ---------------------------------------------------------------------------
+# trajectories against the reference
+# ---------------------------------------------------------------------------
+def _state_leaves(st):
+    """Params and every pending snapshot's payload and aggregate."""
+    out = [st.params]
+    for lvl in sorted(st.pending):
+        for snap in st.pending[lvl].snaps:
+            out += [snap.params, snap.agg]
+    return out
+
+
+def _rel(got, want):
+    """Max over leaves of max |got - want| / max |want| (per leaf)."""
+    errs = []
+    for g, w in zip(got, want):
+        for a, b in zip(tree_leaves(g) if isinstance(g, dict) else
+                        jax.tree.leaves(g), jax.tree.leaves(w)):
+            a, b = np.asarray(a), np.asarray(jax.device_get(b))
+            errs.append(np.abs(a - b).max() / np.abs(b).max())
+    return max(errs)
+
+
+def _reference_spread(al, comms, T, seeds=(1,)):
+    """How far the reference moves from itself when every element of its
+    initial params is multiplied by 1, 1 + 2^-24 or 1 - 2^-24 (one draw
+    per seed): the rounding noise of one framework, propagated."""
+    jm = JModel(JConfig(**MODEL))
+    p0 = jax.device_get(jm.init(jax.random.PRNGKey(0)))
+
+    def run(p):
+        e = J.HSGD(jm.loss, JO.sgd(0.08),
+                   J.make_topology(J.HierarchySpec(*SPEC)),
+                   J.EngineConfig(async_levels=al, comms=comms))
+        st = e.init(jax.random.PRNGKey(0),
+                    lambda k: jax.tree.map(jnp.asarray, p))
+        return e.run_rounds(st, _batch_j, T=T)[0]
+
+    base = _state_leaves(run(p0))
+    spread = 0.0
+    for seed in seeds:
+        rng = np.random.default_rng(seed)
+        p1 = jax.tree.map(lambda x: (x * (1 + rng.choice(
+            [-1, 0, 1], x.shape) * 2.0 ** -24)).astype(np.float32), p0)
+        spread = max(spread, _rel(_state_leaves(run(p1)), base))
+    return spread
+
+
+@pytest.mark.parametrize("comms", [None, "int8", "sign"])
+@pytest.mark.parametrize("al", [{1: 1}, {2: 1}, {1: 1, 2: 1}, {1: 2}],
+                         ids=["L1s1", "L2s1", "L1s1-L2s1", "L1s2"])
+def test_async_trajectory_matches_reference(al, comms):
+    """Per-step losses within RTOL, and params and pending snapshots
+    within RTOL — or, where the reference is ill-conditioned (its own run
+    from a 1-ulp perturbation of its initial params lies further than
+    RTOL: a ReLU or int8 rounding edge met along the way), within that
+    spread.  At T=48 that is {1: 1, 2: 1} under int8: the reference moves
+    from itself by 1.8e-2 in params there, and the port by 2.7e-3 (1.0e-6
+    in the losses)."""
+    je, js, pe, ps = _engines({"async_levels": al, "comms": comms})
+    js, jh = je.run_rounds(js, _batch_j, T=48)
+    ps, ph = pe.run_rounds(ps, _batch_p, T=48)
+    ce_j = np.array([r["ce"] for r in jh])
+    ce_p = np.array([r["ce"] for r in ph])
+    assert np.abs(ce_p - ce_j).max() <= RTOL * np.abs(ce_j).max()
+    assert [r.get("wire_bytes") for r in ph] == \
+        [r.get("wire_bytes") for r in jh]
+    assert sorted(ps.pending) == sorted(js.pending) == sorted(al)
+    err = _rel(_state_leaves(ps), _state_leaves(js))
+    if err > RTOL:
+        spread = _reference_spread(al, comms, 48)
+        assert RTOL < spread and err <= spread, (err, spread)
+
+
+def test_async_with_momentum_matches_reference():
+    """The moments ride the stale sync: snapshots carry them and their
+    posted aggregate."""
+    je, js, pe, ps = _engines({"async_levels": {1: 1}},
+                              opt=(JO.momentum(0.02), PO.momentum(0.02)))
+    js, jh = je.run_rounds(js, _batch_j, T=48)
+    ps, ph = pe.run_rounds(ps, _batch_p, T=48)
+    _close(ps.params, js.params)
+    _close(ps.opt_state["m"], js.opt_state["m"])
+    snap, jsnap = ps.pending[1].snaps[-1], js.pending[1].snaps[-1]
+    assert tree_leaves(snap.opt) and tree_leaves(snap.agg_opt)
+    _close(snap.opt, jsnap.opt)
+    _close(snap.agg_opt, jsnap.agg_opt)
+
+
+def _runtimes(**kw):
+    links = ((2.0, 1e8), (0.1, 1e9))
+    return (JR.RuntimeModel(compute_s=1.0, links=tuple(
+                JR.LinkModel(*l) for l in links), seed=1, **kw),
+            PR.RuntimeModel(compute_s=1.0, links=tuple(
+                PR.LinkModel(*l) for l in links), seed=1, **kw))
+
+
+def test_async_composes_with_elastic_runtime():
+    """Deadline drops at stale boundaries: times, drops and the clock's
+    breakdown equal the reference's exactly, losses within RTOL."""
+    je, js, pe, ps = _engines(
+        {"async_levels": {1: 1}},
+        runtimes=_runtimes(straggler="bursty:0.25:0.5:2.5", policy=2.0))
+    js, jh = je.run_rounds(js, _batch_j, T=48)
+    ps, ph = pe.run_rounds(ps, _batch_p, T=48)
+    for key in ("sim_time_s", "sim_sync_s", "dropped"):
+        assert [r.get(key) for r in ph] == [r.get(key) for r in jh], key
+    ce_j = np.array([r["ce"] for r in jh])
+    assert np.abs(np.array([r["ce"] for r in ph]) - ce_j).max() <= \
+        RTOL * np.abs(ce_j).max()
+    _close(ps.params, js.params)
+    br = pe.runtime_report()
+    assert br == je.runtime_report()
+    assert br["async"]["L1"]["staleness"] == 1
+    assert sum(br["dropped"].values()) > 0
+
+
+def test_async_removes_global_barrier_time():
+    """With an expensive global link and no stragglers, the async arm's
+    makespan is below the barrier arm's, both equal to the reference's."""
+    out = {}
+    for al in (None, {1: 1}):
+        je, js, pe, ps = _engines({"async_levels": al},
+                                  runtimes=_runtimes())
+        _, jh = je.run_rounds(js, _batch_j, T=32)
+        _, ph = pe.run_rounds(ps, _batch_p, T=32)
+        assert [r["sim_time_s"] for r in ph] == [r["sim_time_s"] for r in jh]
+        out[bool(al)] = ph[-1]["sim_time_s"]
+    assert out[True] < out[False]
+
+
+# ---------------------------------------------------------------------------
+# inside the port, bit for bit
+# ---------------------------------------------------------------------------
+def test_staleness_zero_is_bitwise_barrier():
+    e0, s0 = _port()
+    e1, s1 = _port({"async_levels": {1: 0, 2: 0}})
+    assert e1.async_levels == {} and s1.pending is None
+    s0, h0 = e0.run_rounds(s0, _batch_p, 32)
+    s1, h1 = e1.run_rounds(s1, _batch_p, 32)
+    assert _equal(s0.params, s1.params) and _equal(s0.opt_state,
+                                                   s1.opt_state)
+    assert [r["ce"] for r in h0] == [r["ce"] for r in h1]
+
+
+def test_stale_fold_matches_hand_oracle():
+    """Async {2: 1} posts at t=I and folds at t=2I: the live params there
+    are the pure-local trajectory plus (snap.agg - snap.params)."""
+    spec = ((2, 4), (32, 4))                 # only level-2 events fire
+    ea, sa = _port({"async_levels": {2: 1}}, spec=spec)
+    sa, _ = ea.run_rounds(sa, _batch_p, 4)   # warm-up post at t=4
+    snap = sa.pending[2].snaps[-1]
+    topo = P.make_topology(P.HierarchySpec(*spec))
+    assert _equal(snap.agg, topo.aggregate(snap.params,
+                                           P.SyncEvent(level=2)))
+    assert _equal(snap.params, sa.params)    # payload == live at post
+    sa8, _ = ea.run_rounds(sa, _batch_p, 4)  # t=8 folds the t=4 aggregate
+    eo, so = _port(spec=((2, 4), (64, 32)))
+    so, _ = eo.run_rounds(so, _batch_p, 8)
+    oracle = tree_map(lambda live, a, p: live + (a - p), so.params,
+                      snap.agg, snap.params)
+    assert _equal(sa8.params, oracle)
+
+
+def test_resume_split_parity():
+    ea, sa = _port({"async_levels": {1: 1, 2: 1}})
+    sa, _ = ea.run_rounds(sa, _batch_p, 32)
+    eb, sb = _port({"async_levels": {1: 1, 2: 1}})
+    sb, _ = eb.run_rounds(sb, _batch_p, 12)   # mid-schedule cut
+    sb, _ = eb.run_rounds(sb, _batch_p, 20)
+    assert _equal(sa.params, sb.params)
+    for lvl in (1, 2):
+        assert all(_equal(a.params, b.params) and _equal(a.agg, b.agg)
+                   for a, b in zip(sa.pending[lvl].snaps,
+                                   sb.pending[lvl].snaps))
+
+
+def test_async_with_codec_keeps_disjoint_residuals():
+    eng, st = _port({"async_levels": {1: 1},
+                     "comms": PC.Comms("topk", rate=0.25)})
+    st, _ = eng.run_rounds(st, _batch_p, 32)
+    res = tree_leaves(st.pending[1].residual)
+    assert res and any(float(r.abs().max()) > 0 for r in res)
+    assert st.comms is not None
+    assert any(not torch.equal(a, b)
+               for a, b in zip(res, tree_leaves(st.comms)))
+
+
+def test_dropped_worker_keeps_its_pending_rows():
+    """A masked stale boundary (the second level-1 boundary of {1: 1},
+    which folds and snapshots): dropped workers keep their post-update
+    params and opt state and their pending slots unchanged; admitted
+    workers fold and post."""
+    eng, st = _port({"async_levels": {1: 1}}, opt=PO.momentum(0.05))
+    st, _ = eng.run_rounds(st, _batch_p, 16)             # first post
+    rounds = P.compile_schedule(eng.topology.schedule(32)[16:], t0=16,
+                                async_levels={1: 1}, warm0={1: 1})
+    def batches(rnd):
+        return tuple({k: torch.as_tensor(v) for k, v in
+                      _batch_p(st.step + i).items()}
+                     for i in range(rnd.n_local))
+
+    for rnd in rounds[:-1]:
+        st, _ = eng.round_fn(rnd)(st, batches(rnd))
+    last = rounds[-1]
+    assert last.stale[-1].snapshot and last.stale[-1].n_fold == 1
+    batches = batches(last)
+    mask = torch.tensor([1, 0, 1, 1, 1, 1, 0, 1], dtype=torch.bool)
+    out, _ = eng.round_fn(last, masked=True)(st, batches, mask)
+    nosync, _ = eng.round_fn(P.Round(last.n_local, None))(st, batches)
+    drop = ~mask
+
+    def rows(tree, m):
+        return [x[m] for x in tree_leaves(tree)]
+
+    for tree in ("params", "opt_state"):
+        assert all(torch.equal(a, b) for a, b in zip(
+            rows(getattr(out, tree), drop), rows(getattr(nosync, tree),
+                                                 drop)))
+    old, new = st.pending[1].snaps[0], out.pending[1].snaps[0]
+    for field in ("params", "opt", "agg", "agg_opt"):
+        a, b = getattr(new, field), getattr(old, field)
+        assert all(torch.equal(x, y) for x, y in zip(rows(a, drop),
+                                                     rows(b, drop)))
+        if field == "params":
+            assert any(not torch.equal(x, y)
+                       for x, y in zip(rows(a, mask), rows(b, mask)))
+
+
+# ---------------------------------------------------------------------------
+# refusals
+# ---------------------------------------------------------------------------
+def test_per_step_path_refuses_async():
+    eng, st = _port({"async_levels": {1: 1}})
+    with pytest.raises(NotImplementedError, match="run_rounds"):
+        eng.step(st, _batch_p(0))
+
+
+@pytest.mark.parametrize("al,match", [({5: 1}, "outside the hierarchy"),
+                                      ({1: -1}, "staleness")])
+def test_async_levels_validation_matches_reference(al, match):
+    pm, jm = SimpleModel(SimpleConfig(**MODEL)), JModel(JConfig(**MODEL))
+    msgs = []
+    for pkg, model, opt in ((P, pm, PO.sgd(0.05)), (J, jm, JO.sgd(0.05))):
+        with pytest.raises(ValueError, match=match) as e:
+            pkg.HSGD(model.loss, opt,
+                     pkg.make_topology(pkg.HierarchySpec(*SPEC)),
+                     pkg.EngineConfig(async_levels=al))
+        msgs.append(str(e.value))
+    assert msgs[0] == msgs[1]
+
+
+def test_mesh_refuses_async_and_drop_rounds_naming_a7d(tmp_path):
+    """In a one-process ``gloo`` group: an engine with async levels is
+    refused at bind and a masked round at ``round_fn``, both naming A7d;
+    a runtime that drops nobody runs on the mesh with its clock."""
+    import torch.distributed as dist
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
+                            world_size=1, rank=0)
+    try:
+        pm = SimpleModel(SimpleConfig(**MODEL))
+        topo = lambda: P.make_topology("local_sgd", n=1, P=4)
+        with pytest.raises(NotImplementedError, match="A7d"):
+            P.HSGD(pm.loss, PO.sgd(0.05), topo(), P.EngineConfig(
+                executor="mesh", async_levels={1: 1}))
+        eng = P.HSGD(pm.loss, PO.sgd(0.05), topo(), P.EngineConfig(
+            executor="mesh", runtime=PR.RuntimeModel(compute_s=1.0)))
+        with pytest.raises(NotImplementedError, match="A7d"):
+            eng.round_fn(P.Round(4, P.SyncEvent(level=1)), masked=True)
+        st = eng.init(torch.Generator().manual_seed(0), pm.init,
+                      device="cpu")
+        st, hist = eng.run_rounds(st, lambda t: {
+            k: v[:1] for k, v in _batch_p(t).items()}, 8)
+        assert [r["sim_time_s"] for r in hist][-1] > 8.0
+        assert eng.runtime_report()["dropped"] == {1: 0}
+    finally:
+        dist.destroy_process_group()

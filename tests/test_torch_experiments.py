@@ -10,9 +10,13 @@ of ``worker_params`` within 1e-5 of the largest reference value; the
 gradients behind Fig. 3c within 1e-6 of the largest and the divergences
 within 1e-6 of the largest term (``tests/test_torch_divergence.py``);
 the groupings, the communication model, ``time_to_target`` and Table 1's
-rows exactly.  The live mains themselves run on the card
-(``chip_smoke.py``), not here.
+rows exactly.  The runtime benchmark's twin: its records equal the
+reference's (the simulated times are host numbers; ``best_acc`` within
+1/640, one example of the eval batch), its claims too, and the committed
+initial params equal the reference's draw bit for bit.  The live mains
+themselves run on the card (``chip_smoke.py``), not here.
 """
+import re
 import sys
 from pathlib import Path
 
@@ -28,6 +32,7 @@ ROOT = Path(__file__).resolve().parent.parent
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
+from benchmarks import bench_runtime as JBR  # noqa: E402
 from benchmarks import common as BC  # noqa: E402
 from benchmarks import fig_e4_participation as JE4  # noqa: E402
 from benchmarks import table1_bounds as JT1  # noqa: E402
@@ -35,6 +40,7 @@ import repro.core as J  # noqa: E402
 from repro.optim import sgd as jsgd  # noqa: E402
 
 import repro_torch.core as P  # noqa: E402
+from repro_torch.experiments import bench_runtime as PBR  # noqa: E402
 from repro_torch.experiments import common as PC  # noqa: E402
 from repro_torch.experiments import fig3c_grouping as PF3C  # noqa: E402
 from repro_torch.experiments import fig_e4_participation as PE4  # noqa: E402
@@ -218,3 +224,126 @@ def test_participation_run_matches_reference():
                   init_params=_p0(jmodel, seed=1))
     assert abs(got[0] - want[0]) <= RTOL * abs(want[0])
     assert abs(got[1] - want[1]) <= RTOL * abs(want[1])
+
+
+def test_runtime_init_file_equals_reference_draw():
+    """The twin starts from the committed params; they must be the
+    reference's ``model.init(PRNGKey(0))`` under the installed JAX, so the
+    file cannot go stale silently (the async claim depends on the draw)."""
+    sys.path.insert(0, str(ROOT / "scripts"))
+    try:
+        import export_runtime_init as X
+    finally:
+        sys.path.remove(str(ROOT / "scripts"))
+    want = X.flat(X.reference_params())
+    got = PBR.load_init_params()
+    assert sorted(X.flat(got)) == sorted(want)
+    for k, v in X.flat(got).items():
+        assert v.dtype == want[k].dtype and np.array_equal(v, want[k]), k
+    assert sum(v.size for v in want.values()) == 1988
+
+
+def _reference_records(tname, rname):
+    """The reference's ``bench_regime`` on the CPU: its record, or, where
+    its async assert fails, the message and the records built as
+    ``bench_regime`` builds them from the arms it ran."""
+    jds, jmodel = BC.make_world(n_workers=8, num_classes=4)
+    spec, links = JBR.TOPOLOGIES[tname]
+    arms = []
+    run_arm = JBR.run_arm
+
+    def recording(*a, **kw):
+        arms.append(run_arm(*a, **kw))
+        return arms[-1]
+
+    JBR.run_arm = recording
+    try:
+        return JBR.bench_regime(jds, jmodel, spec, links, rname,
+                                JBR.REGIMES[rname], 96)[0], None, None
+    except AssertionError as e:
+        hists = [h for _, h in arms]
+        accs = lambda h: [r["acc"] for r in h if "acc" in r]
+        target = JBR.TARGET_FRAC * min(max(accs(h)) for h in hists)
+        recs = {}
+        for name, (eng, h) in zip(("full_barrier", "elastic", "async"),
+                                  arms):
+            steps, t_pub, t_make = JBR.time_to_target(h, target)
+            rep = eng.runtime_report()
+            recs[name] = {"steps_to_target": steps,
+                          "time_to_target_s": t_pub,
+                          "makespan_at_target_s": t_make,
+                          "total_sim_time_s": h[-1]["sim_time_s"],
+                          "final_sync_s": h[-1]["sim_sync_s"],
+                          "best_acc": round(max(accs(h)), 4),
+                          "dropped": rep["dropped"],
+                          "synced": rep["synced"]}
+        recs["target_acc"] = round(target, 4)
+        return recs, str(e), target
+    finally:
+        JBR.run_arm = run_arm
+
+
+@pytest.mark.parametrize("rname", ["none", "bursty"])
+@pytest.mark.parametrize("tname", ["two_level", "three_level"])
+def test_bench_runtime_regime_matches_reference(tname, rname):
+    """Both packages' ``bench_regime`` from the reference's params on the
+    CPU: every simulated field equal, ``best_acc`` within 1/640, the same
+    claims.  The reference's three_level / bursty async claim fails under
+    the installed JAX's initial draw (44.300119 >= 38.700197); the twin's
+    claim is false with the same numbers."""
+    want, failed, _ = _reference_records(tname, rname)
+    ds, model = PC.make_world(n_workers=8, num_classes=4)
+    spec, links = PBR.TOPOLOGIES[tname]
+    got, claims = PBR.bench_regime(ds, model, spec, links, tname, rname,
+                                   PBR.REGIMES[rname], 96, device="cpu",
+                                   init_params=PBR.load_init_params())
+    assert got["target_acc"] == want["target_acc"]
+    for arm in ("full_barrier", "elastic", "async"):
+        g, w = dict(got[arm]), dict(want[arm])
+        assert abs(g.pop("best_acc") - w.pop("best_acc")) <= 1 / 640, arm
+        g.pop("async_levels", None)
+        w.pop("async_levels", None)
+        assert g == w, arm
+    if tname == "three_level" and rname == "bursty":
+        assert failed is not None and re.search(
+            r"async did not beat elastic under bursty "
+            r"\(44\.300119 >= 38\.700197\)", failed)
+        key = "three_level/bursty/async_beats_elastic"
+        assert claims[key] == {"holds": False,
+                               "compared": [44.300119, 38.700197]}
+        assert all(v["holds"] for k, v in claims.items() if k != key)
+    else:
+        assert failed is None
+        assert all(v["holds"] for v in claims.values())
+        for k in ("speedup_at_target", "speedup_async_vs_elastic"):
+            assert got[k] == want[k]
+    assert sorted(claims) == sorted(
+        f"{tname}/{rname}/{c}" for c in
+        (["elastic_equals_full_barrier"] if rname == "none" else
+         ["elastic_beats_full_barrier", "async_beats_elastic"]))
+
+
+def test_bench_runtime_main_raises_on_the_false_claim(tmp_path,
+                                                     monkeypatch):
+    """``main`` writes its report where asked (never over the reference's
+    file), then raises naming the false claim.  The matrix is cut to the
+    regime with the false claim here; the whole matrix runs on the CPU and
+    the card in ``chip_smoke.py``."""
+    matrix = PBR.matrix
+    monkeypatch.setattr(PBR, "matrix", lambda quick, device, init: matrix(
+        quick, device, init, topologies=["three_level"],
+        regimes=["bursty"]))
+    out = tmp_path / "BENCH_runtime_torch.json"
+    with pytest.raises(AssertionError,
+                       match="three_level/bursty/async_beats_elastic"):
+        PBR.main(quick=True, out=str(out), device="cpu")
+    import json
+    report = json.loads(out.read_text())
+    assert report["claims"] == {
+        "three_level/bursty/elastic_beats_full_barrier": {
+            "holds": True, "compared": [38.700197, 41.700197]},
+        "three_level/bursty/async_beats_elastic": {
+            "holds": False, "compared": [44.300119, 38.700197]}}
+    with pytest.raises(ValueError, match="BENCH_runtime.json"):
+        PBR.main(quick=True, out=str(tmp_path / "BENCH_runtime.json"),
+                 device="cpu")

@@ -198,13 +198,36 @@ def test_init_from_generator_replicates_one_model():
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("runtime", "on", "A7"), ("metrics", "on", "A7"),
-    ("population", object(), "A7"), ("async_levels", {1: 1}, "A7")])
+    ("runtime", None, None), ("metrics", "on", "A7b"),
+    ("population", object(), "A7c"), ("async_levels", {1: 1}, None)],
+    ids=["runtime", "metrics", "population", "async_levels"])
 def test_unported_subsystems_raise(field, value, item):
+    """``metrics`` (A7b) and ``population`` (A7c) still raise naming their
+    ROADMAP item; ``runtime`` and ``async_levels`` are ported (A7a) and
+    build a working engine (held against the reference in
+    ``tests/test_torch_runtime.py`` and ``tests/test_torch_async.py``)."""
+    from repro_torch.runtime import RuntimeModel
     pm = SimpleModel(SimpleConfig(**MODEL))
     topo = P.make_topology("two_level", n=4, N=2, G=4, I=2)
-    with pytest.raises(NotImplementedError, match=item):
-        P.HSGD(pm.loss, sgd(0.1), topo, P.EngineConfig(**{field: value}))
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=item):
+            P.HSGD(pm.loss, sgd(0.1), topo, P.EngineConfig(**{field: value}))
+        return
+    if field == "runtime":
+        value = RuntimeModel(compute_s=1.0, straggler="fixed:0.25:8",
+                             policy=1.0)
+    eng = P.HSGD(pm.loss, sgd(0.1), topo, P.EngineConfig(**{field: value}))
+    st = eng.init(torch.Generator().manual_seed(0), pm.init, device="cpu")
+    st, hist = eng.run_rounds(st, lambda t: {
+        k: v[:4] for k, v in _batch_p(t).items()}, T=8)
+    assert st.step == 8 and all(np.isfinite(r["ce"]) for r in hist)
+    if field == "runtime":
+        assert hist[-1]["sim_time_s"] > 8.0
+        assert eng.runtime_report()["dropped"][1] > 0
+    else:
+        assert sorted(st.pending) == [1]
+        with pytest.raises(NotImplementedError, match="run_rounds"):
+            eng.step(st, _batch_p(0))
 
 
 @pytest.mark.parametrize("codec,item", [("sign", "B4"), ("topk", "B6")])

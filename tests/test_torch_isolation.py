@@ -61,6 +61,8 @@ def test_importing_the_port_loads_no_jax():
             "import repro_torch.core.divergence, repro_torch.core.theory\n"
             "import repro_torch.core.planner, repro_torch.experiments\n"
             "import repro_torch.experiments.common\n"
+            "import repro_torch.runtime, repro_torch.population\n"
+            "import repro_torch.experiments.bench_runtime\n"
             "from repro_torch.experiments import (fig3_sandwich,\n"
             "    table2_time_to_acc, fig3c_grouping, fig_e4_participation,\n"
             "    fig_e8_multilevel, table1_bounds, plan_deployment)\n"
