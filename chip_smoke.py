@@ -164,11 +164,48 @@ or of the JAX package.  It
    drop a worker) and async sign; each bit for bit the plain versions'
    run on the card, within LOSS_RTOL of the CPU run's loss, with the CPU
    run's wire bytes;
-12. prints one ``{"ssm": ...}`` JSON line with the SSM throughputs, one
+12. obs phase: the in-round probes, the metrics bus and traces.  On
+   ``benchmarks/bench_obs.py``'s two topologies and model (batch
+   OBS_BATCH, T=OBS_T, from one seed) ``run_rounds`` with
+   ``metrics="on"`` on the card and on the CPU: every ``div_*`` value
+   within DIV_RTOL of its row's largest, ``grad_norm`` within
+   GRAD_NORM_RTOL relative, eq. (10) ``up + down == global`` per level on
+   the card within DIV_RTOL; ``metrics=None`` bit for bit the probes-on
+   run's params.  One local round and one sync round under
+   ``torch.cuda.set_sync_debug_mode("warn")``, probes on and off: equal
+   synchronizing-call counts, and a drain of the ring exactly one; the
+   CUDA launches the probes add per local step and per sync round
+   (``torch.profiler``), beside ``Metrics.op_budget("sim")`` (recorded,
+   not asserted).  The twin ``repro_torch.experiments.bench_obs``'s
+   timed leg on the card: ``ratio_best_pair >= MIN_RATIO`` (0.95) for
+   both topologies, steps/s of every repeat printed.  The quickstart
+   world as async int8 (``async_levels={1: 1}``) with probes on: the
+   staleness channel nonzero exactly at the stale folds, bit for bit the
+   plain versions' run and the probes-off run on the card, within
+   LOSS_RTOL of the CPU run, its ``int8_scale_quantize`` launches counted.
+   (Card against CPU runs at OBS_LR, where the CE stays well above
+   float32's resolution; see the note at OBS_LR.)
+   ``python -m repro_torch.obs`` (a runtime on) on the card and the CPU:
+   the trace passes ``validate_trace`` and its event names equal the
+   CPU's;
+13. population phase: the twin ``repro_torch.experiments.
+   bench_population``'s sweep (10^3 to 10^6 clients, k = 8) on the card:
+   hydrated state bytes equal across the sweep and to the baseline's
+   69,984, the ``k == population`` loop bit for bit row 0 of the
+   materialized engine, seconds per step (host clock after a
+   ``synchronize``) and draw ms printed.  ``run_sampled`` of that world at
+   POP_CELLS for POP_ROUNDS rounds under int8, launches counted from
+   zero: bit for bit the plain versions' run on the card, server loss
+   within LOSS_RTOL of the CPU's, the CPU's wire bytes and participation;
+   under top-k, one round's nonzero fold-back of the same slots on the
+   card within POP_TOPK_RTOL of the CPU's, and whole runs within
+   LOSS_RTOL in server loss, with the params' gap printed;
+14. prints one ``{"ssm": ...}`` JSON line with the SSM throughputs, one
    ``{"topk_sim": ..., "mesh": ...}`` line, one ``{"experiments": ...}``
-   line, one ``{"runtime": ...}`` line, one ``{"kernels": [...]}`` JSON
-   line (all nine kernels), then the result line ``{"ok": true, "device":
-   {...}}`` last.
+   line, one ``{"runtime": ...}`` line, one ``{"obs": ...}`` line, one
+   ``{"population": ...}`` line, one ``{"kernels": [...]}`` JSON line (all
+   nine kernels), then the result line ``{"ok": true, "device": {...}}``
+   last.
 
 Any failed phase exits non-zero before the result line.
 
@@ -356,6 +393,35 @@ SPS_T, SPS_REPS = 256, 3
 # many runs of each arm; the false claim the twin must reproduce
 RUNTIME_REPS = 3
 RUNTIME_FALSE_CLAIMS = ["three_level/bursty/async_beats_elastic"]
+# obs phase: card against CPU on bench_obs's topologies and model at this
+# batch, length and learning rate (the twin's own batch of 512 is for its
+# timed leg, which runs on the card only); grad_norm within this relative
+# difference.  At the twin's lr of 0.08 every worker's one-label shard
+# drives its CE to ~1e-6 in one step, where float32 resolves 1 - softmax
+# to ~10% and the card's log_softmax rounds otherwise than the CPU's:
+# grad_norm then differs by 1.3e-2 while the params agree to 3e-7 (PERF.md
+# §6, PR 22).  At OBS_LR the CE stays above 0.3 over the OBS_T steps
+OBS_BATCH, OBS_T, OBS_LR = 16, 32, 0.002
+GRAD_NORM_RTOL = 1e-5
+# host syncs are counted in each of this many calls of a round, after a
+# warm-up call of the round and after one empty call of the counter (the
+# first switch into the warn mode itself reports a sync, inside
+# torch.cuda.set_sync_debug_mode).  Each sync is reported as its
+# SYNC_FRAMES innermost Python frames
+SYNC_CALLS, SYNC_FRAMES = 3, 6
+# the probes' cost on a host-bound world: steps/s of the paper's world
+# (two_level(8, 2, 16, 4), T=SPS_T) through run_rounds, probes on against
+# off, OBS_HOST_REPS same-repeat pairs (printed, not asserted)
+OBS_HOST_REPS = 3
+# population phase: run_sampled of bench_population's world under int8 and
+# top-k at these cells and rounds; the top-k nonzero fold-back of one
+# round's slots on the card within POP_TOPK_RTOL (max |diff| over max |cpu|
+# per leaf) of the CPU's fold of the same slots.  Whole top-k runs are held
+# to LOSS_RTOL in server loss, as the quickstart's top-k runs are: a
+# selection near a tie flips between card and CPU (the params then move by
+# ~1e-3 at once, PERF.md §6, PR 22)
+POP_CELLS, POP_ROUNDS = (10, 100), 8
+POP_TOPK_RTOL = 1e-5
 TPU_KERNEL = "src/repro/kernels/comms.py"
 SOURCE = "src/repro_torch/kernels/csrc/{}.cu"
 
@@ -599,11 +665,11 @@ def quickstart(device: str, comms, spec=None, opt=None, executor=None,
     """The quickstart world through HSGD.run_rounds, on the two-level
     hierarchy or ``spec`` (group sizes, periods), with sgd(0.08) or
     ``opt``, on the sim executor or ``executor``, with the further
-    ``EngineConfig`` fields ``cfg`` (a runtime, async levels); returns the
-    final global loss and accuracy, the wire bytes, the launch counts of
-    the run, its seconds, the runtime's report (None without one) and the
-    final params and error-feedback residuals of every worker (on the CPU;
-    a mesh rank gathers them)."""
+    ``EngineConfig`` fields ``cfg`` (a runtime, async levels, a metrics
+    plan); returns the final global loss and accuracy, the wire bytes, the
+    launch counts of the run, its seconds, the runtime's report (None
+    without one), the final params and error-feedback residuals of every
+    worker (on the CPU; a mesh rank gathers them) and the history."""
     import torch
     from repro_torch.core import (EngineConfig, HSGD, HierarchySpec,
                                   make_topology)
@@ -651,7 +717,8 @@ def quickstart(device: str, comms, spec=None, opt=None, executor=None,
             "runtime": engine.runtime_report(),
             "params": [p.cpu() for p in tree_leaves(gather(state.params))],
             "comms": None if state.comms is None else
-            [r.cpu() for r in tree_leaves(gather(state.comms))]}
+            [r.cpu() for r in tree_leaves(gather(state.comms))],
+            "history": history}
 
 
 @contextlib.contextmanager
@@ -2121,6 +2188,454 @@ def runtime_phase(torch, kern, ref):
     return rec
 
 
+def _sync_warnings(torch, fn):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("warn")``: its
+    result and the synchronizing-call warnings it raised (every
+    device-to-host copy and every wait for the device is one), each as
+    the innermost Python frames that led to the call."""
+    import traceback
+    import warnings
+    sites = []
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" in str(message):
+            frames = [f for f in traceback.extract_stack()
+                      if Path(f.filename).name != "warnings.py"][:-1]
+            sites.append(" < ".join(
+                f"{'/'.join(Path(f.filename).parts[-2:])}:{f.lineno}"
+                for f in reversed(frames[-SYNC_FRAMES:])))
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sites
+
+
+def _kernel_census(torch, fn) -> dict:
+    """CUDA kernels of one ``fn()`` call (``torch.profiler``): the
+    ``cudaLaunchKernel`` calls the host made and the kernels the device
+    recorded."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    return {"host_launches": sum(e.name.startswith(("cudaLaunchKernel",
+                                                    "cuLaunchKernel"))
+                                 for e in events),
+            "device_kernels": sum(
+                e.device_type == torch.autograd.DeviceType.CUDA
+                for e in events)}
+
+
+def _obs_engine(spec, device, metrics="on", batch=OBS_BATCH, **cfg):
+    """bench_obs's model on ``spec`` with ``metrics``, from the params of
+    ``torch.Generator().manual_seed(0)``; returns the engine, its state and
+    a batch function on bench_obs's data at ``batch`` per worker."""
+    import torch
+    from repro_torch.core import EngineConfig, HSGD, make_topology
+    from repro_torch.experiments import bench_obs
+    from repro_torch.optim import sgd
+    ds, model = bench_obs.make_obs_world(n_workers=8)
+    eng = HSGD(model.loss, sgd(OBS_LR), make_topology("uniform", spec=spec),
+               EngineConfig(metrics=metrics, **cfg))
+    st = eng.init(torch.Generator().manual_seed(0), model.init,
+                  device=device)
+    return eng, st, lambda t: ds.batch(t, batch)
+
+
+def obs_phase(torch, kern, ref):
+    """The observability layer on the card (see the module docstring, 12).
+    Returns the phase's record, with the kernels' launches per run under
+    ``launches``."""
+    from repro_torch.core import Round, SyncEvent, compile_schedule
+    from repro_torch.experiments import bench_obs
+    from repro_torch.obs import TraceRecorder, validate_trace
+    from repro_torch.obs.__main__ import main as obs_main
+    from repro_torch.tree import tree_leaves
+    t_phase = time.perf_counter()
+    rec = {"card": card_line()}
+
+    # card against CPU, probes on, on bench_obs's two topologies
+    parity = {}
+    for tname, spec in bench_obs.TOPOLOGIES.items():
+        hists, params = {}, {}
+        for device in ("cuda", "cpu"):
+            eng, st, batch = _obs_engine(spec, device)
+            st, hists[device] = eng.run_rounds(st, batch, OBS_T)
+            params[device] = [p.cpu() for p in tree_leaves(st.params)]
+        card, cpu = hists["cuda"], hists["cpu"]
+        rows = [(a, b) for a, b in zip(card, cpu) if "div_global" in b]
+        check(len(rows) == OBS_T // spec.periods[-1]
+              and all("div_global" in a for a, _ in rows),
+              f"obs {tname}: probe rows on the card "
+              f"{sum('div_global' in a for a in card)}, on the CPU "
+              f"{len(rows)}, want one per sync")
+        div_err = max(max(abs(a[k] - b[k]) for k in b if k.startswith("div_"))
+                      / max(abs(b[k]) for k in b if k.startswith("div_"))
+                      for a, b in rows)
+        gn_err = max(abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]
+                     for a, b in zip(card, cpu))
+        levels = sorted({int(k[len("div_up_L"):]) for k in cpu[-1]
+                         if k.startswith("div_up_L")})
+        eq10 = max(abs(a[f"div_up_L{lvl}"] + a[f"div_down_L{lvl}"]
+                       - a["div_global"]) / a["div_global"]
+                   for a, _ in rows for lvl in levels)
+        print(f"obs {tname}: {len(rows)} probe rows; card vs CPU div_* "
+              f"max |diff| / row max {div_err!r}, grad_norm max relative "
+              f"{gn_err!r}; eq. (10) on the card max |up + down - global| "
+              f"/ global {eq10!r}", flush=True)
+        check(div_err <= DIV_RTOL, f"obs {tname}: card vs CPU probe rows "
+              f"differ by {div_err} of the row's largest > {DIV_RTOL}")
+        check(gn_err <= GRAD_NORM_RTOL, f"obs {tname}: grad_norm differs "
+              f"by {gn_err} relative > {GRAD_NORM_RTOL}")
+        check(eq10 <= DIV_RTOL, f"obs {tname}: eq. (10) misses by {eq10} "
+              f"of div_global > {DIV_RTOL}")
+        # probes change no param bit: the same run with metrics None
+        eng, st, batch = _obs_engine(spec, "cuda", metrics=None)
+        st, off = eng.run_rounds(st, batch, OBS_T)
+        same = all(torch.equal(a.cpu(), b) for a, b in
+                   zip(tree_leaves(st.params), params["cuda"]))
+        check(same and st.metrics is None
+              and [r["ce"] for r in off] == [r["ce"] for r in card],
+              f"obs {tname}: probes on moved the trajectory on the card")
+        parity[tname] = {"rows": len(rows), "div_rel": div_err,
+                         "grad_norm_rel": gn_err, "eq10_rel": eq10,
+                         "probes_off_bitwise": same}
+    rec["card_vs_cpu"] = parity
+
+    # host syncs and launches: one local round and one sync round of
+    # two_level, probes on against off, after a warm-up period
+    spec = bench_obs.TOPOLOGIES["two_level"]
+    n_local = spec.periods[-1]
+    engines = {name: _obs_engine(spec, "cuda", metrics=m)
+               for name, m in (("on", "on"), ("off", None))}
+    torch.cuda.synchronize()
+    _, rec["sync_mode_switch"] = _sync_warnings(torch, lambda: None)
+    costs = {}
+    for name, (eng, st, batch) in engines.items():
+        st, _ = eng.run_rounds(st, batch, spec.G)      # builds every round
+        dev_batches = tuple(eng._on_device(batch(i), st)
+                            for i in range(n_local))
+        cost = {}
+        for kind, rnd in (("local", Round(n_local, None)),
+                          ("sync", Round(n_local, SyncEvent(level=2)))):
+            fn = eng.round_fn(rnd)
+            fn(st, dev_batches)                        # builds the body
+            sites = []
+            for _ in range(SYNC_CALLS):
+                torch.cuda.synchronize()
+                (st2, _), where = _sync_warnings(
+                    torch, lambda: fn(st, dev_batches))
+                sites.append(where)
+            cost[kind] = {"syncs": [len(w) for w in sites],
+                          "sync_sites": sites,
+                          **_kernel_census(torch,
+                                           lambda: fn(st, dev_batches))}
+        if name == "on":
+            torch.cuda.synchronize()
+            (_, rows), where = _sync_warnings(
+                torch, lambda: eng.drain_metrics(st2))
+            cost["drain"] = {"syncs": len(where), "sync_sites": where,
+                             "rows": len(rows)}
+            leaves = len(tree_leaves(st.params))
+            cost["op_budget_sim"] = eng.metrics.op_budget(
+                "sim", eng.topology, leaves)
+        costs[name] = cost
+    on, off = costs["on"], costs["off"]
+    extra = {kind: {k: on[kind][k] - off[kind][k]
+                    for k in ("host_launches", "device_kernels")}
+             for kind in ("local", "sync")}
+    extra["per_local_step"] = {k: v / n_local
+                               for k, v in extra["local"].items()}
+    extra["sync_row"] = {k: extra["sync"][k] - extra["local"][k]
+                         for k in extra["local"]}
+    print(f"obs host syncs in each of {SYNC_CALLS} calls of a round, "
+          f"probes on / off: local {on['local']['syncs']} / "
+          f"{off['local']['syncs']}, sync {on['sync']['syncs']} / "
+          f"{off['sync']['syncs']}; a drain of {on['drain']['rows']} "
+          f"row(s): {on['drain']['syncs']} sync(s) at "
+          f"{on['drain']['sync_sites']}; the first switch into the warn "
+          f"mode: {rec['sync_mode_switch']}", flush=True)
+    print(f"obs extra CUDA launches with probes on: per local step "
+          f"{extra['per_local_step']}, per sync round {extra['sync']} (of "
+          f"which the probe row {extra['sync_row']}); "
+          f"Metrics.op_budget('sim') = {on['op_budget_sim']} (a jaxpr "
+          f"count of the reference's, recorded, not asserted); "
+          f"{rec['card']}", flush=True)
+    check(on["local"]["syncs"] == off["local"]["syncs"]
+          and on["sync"]["syncs"] == off["sync"]["syncs"],
+          f"obs: probes on add host syncs to a round: {costs}")
+    check(on["drain"]["syncs"] == 1 and on["drain"]["rows"] == 1,
+          f"obs: a drain took {on['drain']['syncs']} host syncs for "
+          f"{on['drain']['rows']} row(s), want exactly one")
+    rec["syncs_and_launches"] = {"probes_on": on, "probes_off": off,
+                                 "extra": extra}
+
+    # the twin's timed leg on the card
+    t0 = time.perf_counter()
+    twin = bench_obs.run(quick=True, device="cuda")
+    for tname, row in twin["topologies"].items():
+        print(f"bench_obs {tname}: steps/s off {row['off']['steps_per_sec_all']}"
+              f" on {row['on']['steps_per_sec_all']}, ratio per repeat "
+              f"{row['ratio_all']}, best pair {row['ratio_best_pair']!r} "
+              f"(min {bench_obs.MIN_RATIO}); {rec['card']}", flush=True)
+        check(row["ratio_best_pair"] >= bench_obs.MIN_RATIO,
+              f"bench_obs {tname}: probes-on keeps "
+              f"{row['ratio_best_pair']} of probes-off steps/s on the best "
+              f"same-repeat pair < {bench_obs.MIN_RATIO}")
+    twin["wall_s"] = time.perf_counter() - t0
+    rec["bench_obs"] = twin
+
+    # the same pairs on a host-bound world: the paper's experiment world
+    from repro_torch.core import two_level
+    from repro_torch.experiments import common
+    ds, model = common.make_world(8)
+    host = {"off": [], "on": []}
+    for _ in range(OBS_HOST_REPS):
+        for name, metrics in (("off", None), ("on", "on")):
+            host[name].append(common.steps_per_sec(
+                ds, model, two_level(*SPS_SPEC), T=SPS_T, use_rounds=True,
+                device="cuda", metrics=metrics))
+    host["ratio_all"] = [a / b for a, b in zip(host["on"], host["off"])]
+    print(f"obs on a host-bound world (two_level{SPS_SPEC}, T={SPS_T}, "
+          f"run_rounds): steps/s off {host['off']} on {host['on']}, "
+          f"ratio per repeat {host['ratio_all']} (not asserted); "
+          f"{rec['card']}", flush=True)
+    rec["host_bound_world"] = host
+
+    # async int8 with the staleness channel, the quickstart world
+    label = "async int8 probes"
+    cfg = {"async_levels": {1: 1}, "metrics": "on"}
+    gpu = quickstart("cuda", "int8", **cfg)
+    with plain_versions(kern, ref):
+        plain = quickstart("cuda", "int8", **cfg)
+    cpu_run = quickstart("cpu", "int8", **cfg)
+    off = quickstart("cuda", "int8", async_levels={1: 1})
+    rel = abs(gpu["loss"] - cpu_run["loss"]) / abs(cpu_run["loss"])
+    from repro_torch.core import make_topology
+    topo = make_topology("two_level", n=8, N=2, G=16, I=4)
+    folds, t = set(), 0
+    for rnd in compile_schedule(topo.schedule(96), async_levels={1: 1}):
+        t += rnd.n_local
+        if rnd.stale and rnd.stale[-1].snapshot and rnd.stale[-1].n_fold:
+            folds.add(t)
+    stale = {r["t"]: r["div_staleness"] for r in gpu["history"]
+             if "div_staleness" in r}
+    print(f"obs {label}: cuda loss {gpu['loss']!r} | plain versions "
+          f"{plain['loss']!r} | cpu {cpu_run['loss']!r}, relative "
+          f"{rel!r}; launches {gpu['launches']}; staleness at folds "
+          f"{[stale.get(t) for t in sorted(folds)]}, elsewhere max "
+          f"{max(v for t, v in stale.items() if t not in folds)!r}",
+          flush=True)
+    check(gpu["launches"]["int8_scale_quantize"] > 0,
+          f"{label}: int8_scale_quantize was never launched")
+    check(not any(plain["launches"].values()),
+          f"{label}: the plain-version run launched a kernel")
+    check(all(torch.equal(a, b) for a, b in zip(gpu["params"],
+                                                plain["params"]))
+          and gpu["loss"] == plain["loss"]
+          and gpu["history"] == plain["history"],
+          f"{label}: the kernels' run differs from the plain versions'")
+    check(all(torch.equal(a, b) for a, b in zip(gpu["params"],
+                                                off["params"])),
+          f"{label}: probes on moved the async int8 trajectory")
+    check(math.isfinite(gpu["loss"]) and rel <= LOSS_RTOL,
+          f"{label}: loss {gpu['loss']} on cuda vs {cpu_run['loss']} on "
+          f"cpu, relative difference {rel} > {LOSS_RTOL}")
+    check(gpu["wire_bytes"] == cpu_run["wire_bytes"] > 0,
+          f"{label}: wire bytes {gpu['wire_bytes']} vs {cpu_run['wire_bytes']}")
+    check(folds and set(stale) >= folds
+          and all((v > 0) == (t in folds) for t, v in stale.items()),
+          f"{label}: the staleness channel {stale} is not nonzero exactly "
+          f"at the stale folds {sorted(folds)}")
+    rec["async_int8"] = {"loss_cuda": gpu["loss"],
+                         "loss_cpu": cpu_run["loss"], "rel": rel,
+                         "wire_bytes": gpu["wire_bytes"],
+                         "launches": gpu["launches"],
+                         "staleness": {str(t): stale[t] for t in sorted(stale)}}
+    rec["launches"] = {"int8_scale_quantize": {
+        label: gpu["launches"]["int8_scale_quantize"]}}
+
+    # the trace: python -m repro_torch.obs on the card and on the CPU
+    names = {}
+    for key, device in (("card", "cuda"), ("host", "cpu")):
+        out = ROOT / "build" / f"obs_trace_{key}.json"
+        check(obs_main(["--out", str(out), "--device", device]) == 0,
+              f"python -m repro_torch.obs failed on {device}")
+        trace = json.loads(out.read_text())
+        if key == "card":
+            errs = validate_trace(trace)
+        names[key] = [e["name"] for e in trace["traceEvents"]]
+    print(f"obs trace (python -m repro_torch.obs, runtime on): "
+          f"{len(names['card'])} events on the card, {len(names['host'])} "
+          f"on the CPU; validate_trace: {errs or 'valid'}", flush=True)
+    check(not errs, f"obs trace: {errs[:5]}")
+    check(names["card"] == names["host"],
+          "obs trace: the card's event names differ from the CPU's")
+    rec["trace"] = {"events": len(names["card"]), "valid": not errs,
+                    "names_equal_cpu": True}
+    rec["wall_s"] = time.perf_counter() - t_phase
+    return rec
+
+
+def _pop_engine(device, comms=None, cells=POP_CELLS, **pop):
+    """bench_population's world under the population regime; returns the
+    engine, its server state (from ``torch.Generator().manual_seed(0)``),
+    the batch function and the server's loss on a fixed eval batch."""
+    import numpy as np
+    import torch
+    from repro_torch.core import EngineConfig, HSGD
+    from repro_torch.experiments import bench_population as bp
+    from repro_torch.population import Population
+    from repro_torch.optim import sgd
+    model, shards = bp.make_world()
+    eng = HSGD(model.loss, sgd(bp.LR), bp._topology(), EngineConfig(
+        comms=comms, population=Population(cells=cells, seed=bp.SEED, **pop)))
+    server = eng.init_server(torch.Generator().manual_seed(0), model.init,
+                             device=device)
+    ev = shards.batch(np.arange(64), 10**6, 8)
+    ev = {k: torch.as_tensor(v.reshape((-1,) + v.shape[2:]), device=device)
+          for k, v in ev.items()}
+    loss = lambda srv: float(model.loss(srv.params, ev)[0])
+    return eng, server, bp.batch_fn(shards), loss
+
+
+def population_phase(torch, kern, ref):
+    """The population regime on the card (see the module docstring, 13).
+    Returns the phase's record, with the kernels' launches per run under
+    ``launches``."""
+    from repro_torch.experiments import bench_population as bp
+    from repro_torch.tree import tree_leaves
+    t_phase = time.perf_counter()
+    rec = {"card": card_line()}
+    t0 = time.perf_counter()
+    twin = bp.run(quick=True, device="cuda")
+    twin["wall_s"] = time.perf_counter() - t0
+    base = twin["baseline"]
+    print(f"bench_population baseline (materialized n = k): "
+          f"{base['time_per_step_s']!r} s per step, state "
+          f"{base['state_bytes']} bytes; {rec['card']}", flush=True)
+    for popsize, r in twin["sweep"].items():
+        print(f"bench_population {popsize} clients (cells {r['cells']}): "
+              f"{r['time_per_step_s']!r} s per step "
+              f"({r['overhead_vs_baseline']!r}x the baseline), draw "
+              f"{r['draw_ms_per_round']!r} ms per round, state "
+              f"{r['state_bytes']} bytes, {r['unique_clients']} clients "
+              f"seen", flush=True)
+    check(twin["state_bytes_equal"],
+          f"bench_population: hydrated state bytes "
+          f"{ {r['state_bytes'] for r in twin['sweep'].values()} } are not "
+          f"all the baseline's {bp.BASELINE_STATE_BYTES}")
+    check(twin["bitwise_k_eq_population"],
+          "bench_population: with k == population the sampled loop is not "
+          "bit for bit the materialized engine on the card")
+    rec["bench_population"] = twin
+
+    # run_sampled under int8: kernels against plain versions, card vs CPU
+    label = f"population int8 cells {POP_CELLS}"
+
+    def sampled(device, comms):
+        eng, server, batch, loss = _pop_engine(device, comms)
+        kern.reset_launch_counts()
+        server, hist = eng.run_sampled(server, batch, POP_ROUNDS)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        return {"loss": loss(server), "launches": dict(kern.launch_counts),
+                "params": [p.cpu() for p in tree_leaves(server.params)],
+                "wire_bytes": sum(h.get("wire_bytes", 0) for h in hist),
+                "participation": [h["participation"] for h in hist]}
+
+    gpu = sampled("cuda", "int8")
+    with plain_versions(kern, ref):
+        plain = sampled("cuda", "int8")
+    cpu_run = sampled("cpu", "int8")
+    rel = abs(gpu["loss"] - cpu_run["loss"]) / abs(cpu_run["loss"])
+    print(f"{label}: server loss cuda {gpu['loss']!r} | plain versions "
+          f"{plain['loss']!r} | cpu {cpu_run['loss']!r}, relative {rel!r}; "
+          f"wire bytes {gpu['wire_bytes']} (cpu {cpu_run['wire_bytes']}); "
+          f"launches {gpu['launches']}", flush=True)
+    check(gpu["launches"]["int8_scale_quantize"] > 0,
+          f"{label}: int8_scale_quantize was never launched")
+    check(not any(plain["launches"].values()),
+          f"{label}: the plain-version run launched a kernel")
+    check(all(torch.equal(a, b) for a, b in zip(gpu["params"],
+                                                plain["params"]))
+          and gpu["loss"] == plain["loss"],
+          f"{label}: the kernels' run differs from the plain versions'")
+    check(math.isfinite(gpu["loss"]) and rel <= LOSS_RTOL,
+          f"{label}: server loss {gpu['loss']} on cuda vs "
+          f"{cpu_run['loss']} on cpu, relative {rel} > {LOSS_RTOL}")
+    check(gpu["wire_bytes"] == cpu_run["wire_bytes"] > 0
+          and gpu["participation"] == cpu_run["participation"],
+          f"{label}: wire bytes or participation differ from the CPU run")
+    rec["int8"] = {"loss_cuda": gpu["loss"], "loss_cpu": cpu_run["loss"],
+                   "rel": rel, "wire_bytes": gpu["wire_bytes"],
+                   "launches": gpu["launches"]}
+
+    # top-k: the nonzero fold-back, card against CPU in server params
+    # top-k: the nonzero fold-back of one round's slots, card against CPU
+    # on the same inputs, then whole runs card against CPU in loss
+    import dataclasses
+    from repro_torch.tree import tree_map
+    eng, server, batch, _ = _pop_engine("cpu", "topk")
+    popeng = eng.population_engine()
+    check(popeng.fold_mode == "nonzero", "population topk: the fold-back "
+          f"mode is {popeng.fold_mode}, not nonzero")
+    draw = popeng.sampler.draw(0)
+    st, _ = popeng.inner.run_rounds(
+        popeng.hydrate(server), lambda t: batch(draw.client_ids, t),
+        popeng.round_steps)
+    weights, _ = popeng.round_weights(draw)
+    on_card = lambda tree: tree_map(lambda x: x.to("cuda"), tree)
+    fold_cpu = popeng.fold_back(server, st, weights)
+    fold_card = popeng.fold_back(
+        dataclasses.replace(server, params=on_card(server.params),
+                            opt_state=on_card(server.opt_state)),
+        dataclasses.replace(st, params=on_card(st.params),
+                            opt_state=on_card(st.opt_state)), weights)
+    fold_err = max(float((a.cpu() - b).abs().max()
+                         / b.abs().max().clamp_min(1e-30))
+                   for a, b in zip(tree_leaves(fold_card.params),
+                                   tree_leaves(fold_cpu.params)))
+    tk_card, tk_cpu = sampled("cuda", "topk"), sampled("cpu", "topk")
+    tk_rel = abs(tk_card["loss"] - tk_cpu["loss"]) / abs(tk_cpu["loss"])
+    gap = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+              for a, b in zip(tk_card["params"], tk_cpu["params"]))
+    print(f"population topk (nonzero fold) cells {POP_CELLS}: one round's "
+          f"fold-back card vs CPU on the same slots, max |diff| / max |cpu| "
+          f"per leaf {fold_err!r}; {POP_ROUNDS} rounds: server loss "
+          f"{tk_card['loss']!r} / {tk_cpu['loss']!r}, relative {tk_rel!r}, "
+          f"params max |diff| / max |cpu| per leaf {gap!r} (not held: "
+          f"top-k selections near ties); launches {tk_card['launches']}",
+          flush=True)
+    check(fold_err <= POP_TOPK_RTOL, f"population topk: the fold-back "
+          f"differs card vs CPU by {fold_err} relative > {POP_TOPK_RTOL}")
+    check(math.isfinite(tk_card["loss"]) and tk_rel <= LOSS_RTOL,
+          f"population topk: server loss {tk_card['loss']} on cuda vs "
+          f"{tk_cpu['loss']} on cpu, relative {tk_rel} > {LOSS_RTOL}")
+    check(tk_card["wire_bytes"] == tk_cpu["wire_bytes"] > 0
+          and tk_card["participation"] == tk_cpu["participation"],
+          "population topk: wire bytes or participation differ from the "
+          "CPU run")
+    check(not any(tk_card["launches"].values()),
+          f"population topk: sim launched {tk_card['launches']}")
+    rec["topk"] = {"fold_rel": fold_err, "loss_cuda": tk_card["loss"],
+                   "loss_cpu": tk_cpu["loss"], "loss_rel": tk_rel,
+                   "params_gap": gap, "wire_bytes": tk_card["wire_bytes"]}
+    rec["launches"] = {"int8_scale_quantize": {
+        label: gpu["launches"]["int8_scale_quantize"]}}
+    rec["wall_s"] = time.perf_counter() - t_phase
+    return rec
+
+
 def profile_phase(torch, kattn):
     """The serving profile (``--profile``); returns its numbers."""
     import dataclasses
@@ -2259,8 +2774,11 @@ def main() -> int:
         ssm_served = ssm_serving_phase(torch, kern, kattn, kssd, krg, ref)
         experiments = experiments_phase(torch, (kern, kattn, kssd, krg))
         runtime = runtime_phase(torch, kern, ref)
-        for name, by_run in runtime["launches"].items():
-            launches[name].update(by_run)
+        obs = obs_phase(torch, kern, ref)
+        population = population_phase(torch, kern, ref)
+        for phase in (runtime, obs, population):
+            for name, by_run in phase["launches"].items():
+                launches[name].update(by_run)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2353,6 +2871,10 @@ def main() -> int:
                                       if k != "mains"}}))
     print(json.dumps({"runtime": {k: v for k, v in runtime.items()
                                   if k != "launches"}}))
+    print(json.dumps({"obs": {k: v for k, v in obs.items()
+                              if k != "launches"}}))
+    print(json.dumps({"population": {k: v for k, v in population.items()
+                                     if k != "launches"}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,7 +12,7 @@ for bit.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -124,7 +124,29 @@ def _lift_matrices(groupings):
     return lifts
 
 
-def partition_divergences_tree(params, groupings) -> torch.Tensor:
+def partition_constants(groupings, device) -> Dict:
+    """The float32 constants :func:`partition_divergences_tree` needs for
+    ``groupings``, on ``device``: each grouping's one-hot and size weights,
+    and the lifts of nested groupings.  Build them once and pass them in
+    where the row is taken repeatedly, so that no host-to-device copy (a
+    host sync on a card) runs per call."""
+    f32 = dict(dtype=torch.float32, device=device)
+    consts = {
+        "onehot": [torch.as_tensor(g.onehot(), **f32) for g in groupings],
+        "sizes": [torch.as_tensor(g.sizes, **f32) for g in groupings],
+        "weights": [torch.as_tensor(g.sizes, **f32) / g.n
+                    for g in groupings],
+        "lifts": None,
+    }
+    lifts = _lift_matrices(groupings) if groupings else None
+    if lifts is not None:
+        consts["lifts"] = [torch.as_tensor(l, **f32) for l in lifts]
+    return consts
+
+
+def partition_divergences_tree(params, groupings,
+                               consts: Optional[Dict] = None
+                               ) -> torch.Tensor:
     """:func:`partition_divergences` evaluated leaf by leaf on a tree with
     a leading worker dim, in float32 — the sum-of-squares terms are
     additive over leaves, so the (n, dim) concatenation never
@@ -135,38 +157,39 @@ def partition_divergences_tree(params, groupings) -> torch.Tensor:
     coarser level's means are weighted combinations of those (tiny), and
     the only other full-size pass is the centered-norm reduction for the
     global term.  Non-nested groupings fall back to one contraction per
-    level."""
+    level.  ``consts`` is :func:`partition_constants` for these groupings
+    on the leaves' device (built here when None)."""
     leaves = [l.reshape(l.shape[0], -1).to(torch.float32)
               for l in tree_leaves(params)]
     dev = leaves[0].device
+    if consts is None:
+        consts = partition_constants(groupings, dev)
     total = torch.zeros((), dtype=torch.float32, device=dev)
     ups = [torch.zeros((), dtype=torch.float32, device=dev)
            for _ in groupings]
 
-    def up_term(gm_centered, grouping):
-        w = _sizes(grouping, gm_centered) / grouping.n
-        return (w * (gm_centered * gm_centered).sum(1)).sum()
+    def means(x, i):
+        return (consts["onehot"][i] @ x) / consts["sizes"][i][:, None]
 
-    lifts = _lift_matrices(groupings) if groupings else None
-    if lifts is not None:
-        lifts = [torch.as_tensor(l, dtype=torch.float32, device=dev)
-                 for l in lifts]
+    def up_term(gm_centered, i):
+        return (consts["weights"][i]
+                * (gm_centered * gm_centered).sum(1)).sum()
+
+    lifts = consts["lifts"]
     for x in leaves:
         if lifts is None:
             y = x - x.mean(0)
             total = total + (y * y).sum(1).mean()
-            for i, grouping in enumerate(groupings):
-                ups[i] = ups[i] + up_term(group_means(y, grouping), grouping)
+            for i in range(len(groupings)):
+                ups[i] = ups[i] + up_term(means(y, i), i)
             continue
-        fin = groupings[-1]
-        gmf = group_means(x, fin)                          # (Nf, dim)
-        wf = _sizes(fin, x) / fin.n
-        xbar = (wf[:, None] * gmf).sum(0)                  # global mean
+        gmf = means(x, -1)                                 # (Nf, dim)
+        xbar = (consts["weights"][-1][:, None] * gmf).sum(0)  # global mean
         total = total + ((x - xbar) ** 2).sum(1).mean()
         gmfc = gmf - xbar
-        ups[-1] = ups[-1] + up_term(gmfc, fin)
+        ups[-1] = ups[-1] + up_term(gmfc, -1)
         for i, lift in enumerate(lifts):
-            ups[i] = ups[i] + up_term(lift @ gmfc, groupings[i])
+            ups[i] = ups[i] + up_term(lift @ gmfc, i)
     out = [total]
     for up in ups:
         out += [up, total - up]

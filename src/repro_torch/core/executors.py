@@ -19,8 +19,10 @@ update is discarded, it contributes nothing and still receives the
 aggregate, and its unconsumed error-feedback residual is kept).  The sim
 also runs the elastic-drop rounds of a runtime (``round_fn(rnd,
 masked=True)``: a dropped worker ran its local updates but neither
-contributes to nor receives the aggregate) and the stale folds of async
-execution (``Round.stale``); the mesh refuses both (ROADMAP A7d).
+contributes to nor receives the aggregate), the stale folds of async
+execution (``Round.stale``) and the in-round divergence probe of a
+metrics plan (a row of the pre-aggregation params at every sync); the mesh
+refuses all three, and the population regime (ROADMAP A7d).
 """
 from __future__ import annotations
 
@@ -59,6 +61,12 @@ class Executor(abc.ABC):
 
     def _validate(self) -> None:
         """Check that the bound plan runs on this backend (fail fast)."""
+
+    def twin(self) -> "Executor":
+        """A fresh UNBOUND executor with this one's settings, for derived
+        engines (the population engine's inner engine): one executor
+        instance serves one engine."""
+        return type(self)()
 
     def place(self, state: HSGDState) -> HSGDState:
         """Lay a freshly initialized (n, ...) state out for this backend."""
@@ -99,6 +107,17 @@ class Executor(abc.ABC):
         """The per-worker local update mapped over this process's rows."""
         return torch.func.vmap(self.plan.local_update_fn())
 
+    def _probe_row_fn(self, event: Optional[SyncEvent]):
+        """The divergence probe for sync steps (None when metrics are off,
+        divergences disabled, or there is no event).  Taken BEFORE the
+        sync so it measures the PRE-aggregation worker params — the live
+        eq. (10) partition."""
+        plan = self.plan
+        if event is None or plan.metrics is None \
+                or not plan.metrics.divergences:
+            return None
+        return plan.metrics.sim_row_fn(plan.topology)
+
     def _metric_means(self, per_step) -> Dict[str, torch.Tensor]:
         """The per-step metrics of a round, each meaned over the worker
         axis: {key: (n_local,)}."""
@@ -111,6 +130,10 @@ class Executor(abc.ABC):
         masked-out worker's update is discarded, it contributes nothing and
         still receives the aggregate."""
         vupdate = self._vupdate()
+        row_fn = self._probe_row_fn(event)
+        # the staleness channel widens the probe row; the per-step path has
+        # no stale boundaries (plan.step refuses async engines), so it pads 0
+        stale_channel = row_fn is not None and self.plan.metrics.staleness
 
         def step(state: HSGDState, batch, mask=None):
             params, opt_state, metrics = vupdate(state.params,
@@ -120,15 +143,20 @@ class Executor(abc.ABC):
                 keep = self._own_mask(mask)
                 params = _keep_rows(keep, params, state.params)
                 opt_state = _keep_rows(keep, opt_state, state.opt_state)
-            cstate = state.comms
+            cstate, mbuf = state.comms, state.metrics
             if event is not None:
+                if row_fn is not None and mbuf is not None:
+                    row = row_fn(params)
+                    if stale_channel:
+                        row = torch.cat([row, row.new_zeros(1)])
+                    mbuf = mbuf.push(row)
                 params, opt_state, cstate = self._apply_event(
                     params, opt_state, cstate, event,
                     mask=mask if masked else None)
             metrics = {k: v[0] for k, v in
                        self._metric_means([metrics]).items()}
-            return HSGDState(params, opt_state, state.step + 1,
-                             cstate, state.pending), metrics
+            return HSGDState(params, opt_state, state.step + 1, cstate,
+                             mbuf, state.pending), metrics
 
         return step
 
@@ -144,8 +172,13 @@ class Executor(abc.ABC):
         stale ops folds what is due and snapshots (:meth:`_stale_fold`); a
         flush boundary's fresh sync applies after its folds, and a drop
         restores the pre-boundary state once, so that a dropped worker
-        misses the folds, the snapshot roll and the fresh aggregate alike."""
+        misses the folds, the snapshot roll and the fresh aggregate alike.
+        With a metrics plan, the probe row of the pre-aggregation (and
+        pre-fold) params is pushed at the sync, widened by the staleness
+        channel under async levels."""
         vupdate = self._vupdate()
+        row_fn = self._probe_row_fn(rnd.event)
+        stale_channel = row_fn is not None and self.plan.metrics.staleness
         if masked:
             assert rnd.event is not None, \
                 "a masked round needs a sync event to drop workers from"
@@ -158,31 +191,44 @@ class Executor(abc.ABC):
             for batch in batches:
                 params, opt_state, metrics = vupdate(params, opt_state, batch)
                 per_step.append(metrics)
-            cstate, pending = state.comms, state.pending
-            if rnd.event is not None and rnd.stale:
-                p0, o0, c0, pend0 = params, opt_state, cstate, pending
-                params, opt_state, pending = self._stale_fold(
-                    params, opt_state, pending, rnd.stale, mask)
-                if not rnd.stale[-1].snapshot:
+            cstate, mbuf, pending = state.comms, state.metrics, state.pending
+            if rnd.event is not None:
+                div_row = row_fn(params) \
+                    if (row_fn is not None and mbuf is not None) else None
+                stale_val = None
+                if rnd.stale:
+                    p0, o0, c0, pend0 = params, opt_state, cstate, pending
+                    params, opt_state, pending, stale_val = self._stale_fold(
+                        params, opt_state, pending, rnd.stale, mask,
+                        rnd.event, want_staleness=stale_channel)
+                    if not rnd.stale[-1].snapshot:
+                        params, opt_state, cstate = self._apply_event(
+                            params, opt_state, cstate, rnd.event, mask=mask)
+                    if masked:
+                        keep = self._own_mask(mask)
+                        params = _keep_rows(keep, params, p0)
+                        opt_state = _keep_rows(keep, opt_state, o0)
+                        if cstate is not None:
+                            cstate = _keep_rows(keep, cstate, c0)
+                        pending = _keep_pending(keep, pending, pend0)
+                else:
                     params, opt_state, cstate = self._apply_event(
-                        params, opt_state, cstate, rnd.event, mask=mask)
-                if masked:
-                    keep = self._own_mask(mask)
-                    params = _keep_rows(keep, params, p0)
-                    opt_state = _keep_rows(keep, opt_state, o0)
-                    if cstate is not None:
-                        cstate = _keep_rows(keep, cstate, c0)
-                    pending = _keep_pending(keep, pending, pend0)
-            elif rnd.event is not None:
-                params, opt_state, cstate = self._apply_event(
-                    params, opt_state, cstate, rnd.event, mask=mask,
-                    drop=masked)
+                        params, opt_state, cstate, rnd.event, mask=mask,
+                        drop=masked)
+                if div_row is not None:
+                    if stale_channel:
+                        if stale_val is None:
+                            stale_val = div_row.new_zeros(())
+                        div_row = torch.cat([div_row, stale_val[None]])
+                    mbuf = mbuf.push(div_row)
             return HSGDState(params, opt_state, state.step + rnd.n_local,
-                             cstate, pending), self._metric_means(per_step)
+                             cstate, mbuf, pending), \
+                self._metric_means(per_step)
 
         return round_fn
 
-    def _stale_fold(self, params, opt_state, pending, ops, mask):
+    def _stale_fold(self, params, opt_state, pending, ops, mask,
+                    event: SyncEvent, want_staleness: bool = False):
         """Apply one boundary's static :class:`~repro_torch.core.hsgd.
         StaleOp`s: each fold applies a stored snapshot's POSTED aggregate
         to the live state as an elementwise delta (:func:`_stale_delta`);
@@ -192,9 +238,16 @@ class Executor(abc.ABC):
         included, against the SLOT's own residual chain), and captures
         payload and aggregate into the newest slot.  Aggregating at
         posting time pins each outstanding sync to the participation mask
-        of the boundary that posted it.  Returns ``(params, opt_state,
-        pending)``; the reference's staleness probe is ROADMAP A7b."""
-        agg_opt = self.plan.aggregate_opt_state
+        of the boundary that posted it.
+
+        Returns ``(params, opt_state, pending, staleness)``: ``staleness``
+        (only when requested, else None) is the probe scalar, the
+        worker-mean ‖applied − fresh‖² against the codec-free barrier
+        aggregate of the pre-fold params, 0 at warm-up and flush
+        boundaries."""
+        plan = self.plan
+        agg_opt = plan.aggregate_opt_state
+        pre_params = params
         pending = dict(pending)
         for op in ops:
             slot = pending[op.level]
@@ -215,7 +268,20 @@ class Executor(abc.ABC):
                     params, base_o, new_p,
                     _moments_only(new_o) if agg_opt else {})]
             pending[op.level] = StaleSlot(tuple(snaps), res)
-        return params, opt_state, pending
+        stale_val = None
+        if want_staleness:
+            own = ops[-1] if ops and ops[-1].snapshot else None
+            if own is not None and own.n_fold:
+                fresh = plan.topology.aggregate(pre_params, event, mask=mask)
+                d2 = sum((a - f).to(torch.float32).square()
+                         .reshape(a.shape[0], -1).sum(1)
+                         for a, f in zip(tree_leaves(params),
+                                         tree_leaves(fresh)))
+                stale_val = d2.mean()
+            else:
+                stale_val = tree_leaves(params)[0].new_zeros(
+                    (), dtype=torch.float32)
+        return params, opt_state, pending, stale_val
 
 
 def _wire_eligible(plan, event: SyncEvent) -> bool:
@@ -371,15 +437,20 @@ class MeshExecutor(Executor):
     to accumulation rounding.
 
     ``step_fn(event, masked=True)`` is Algorithm 1, as on sim.  The
-    elastic drop rounds (a runtime whose policy drops someone) and the
-    stale fold (async levels) are ROADMAP A7d: the mesh refuses an engine
-    with async levels at bind and a masked round at ``round_fn``.  A
-    runtime that drops nobody runs unchanged: its clock is on the host."""
+    elastic drop rounds (a runtime whose policy drops someone), the stale
+    fold (async levels), the probes of a metrics plan and the population
+    regime are ROADMAP A7d: the mesh refuses an engine with async levels,
+    a metrics plan or a population at bind, and a masked round at
+    ``round_fn``.  A runtime that drops nobody runs unchanged: its clock
+    is on the host."""
 
     def __init__(self, mesh=None, *, exact: bool = False):
         super().__init__()
         self.mesh = mesh
         self.exact = bool(exact)
+
+    def twin(self) -> "MeshExecutor":
+        return MeshExecutor(mesh=self.mesh, exact=self.exact)
 
     def _validate(self) -> None:
         import torch.distributed as dist
@@ -418,6 +489,15 @@ class MeshExecutor(Executor):
             raise NotImplementedError(
                 "the mesh executor has no stale fold yet (ROADMAP A7d): run "
                 "async_levels on the sim executor")
+        if self.plan.metrics is not None:
+            raise NotImplementedError(
+                "the mesh executor has no metrics plan yet (ROADMAP A7d: "
+                "its divergence probe and grad_norm channel): run "
+                "metrics on the sim executor, or leave metrics None")
+        if self.plan.population is not None:
+            raise NotImplementedError(
+                "the mesh executor has no population regime yet (ROADMAP "
+                "A7d): run the population on the sim executor")
 
     def _build_round(self, rnd: Round, masked: bool = False):
         if masked:
@@ -435,7 +515,7 @@ class MeshExecutor(Executor):
     def place(self, state: HSGDState) -> HSGDState:
         """Keep this rank's row of a freshly initialized (n, ...) state."""
         return HSGDState(self._row(state.params), self._row(state.opt_state),
-                         state.step, None if state.comms is None
+                         state.step, comms=None if state.comms is None
                          else self._row(state.comms))
 
     def local_rows(self, batch):

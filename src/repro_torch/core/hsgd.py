@@ -17,14 +17,16 @@ State layout: every worker owns a full model replica; ``params``,
 costs no device sync).
 
 Ported here: the barrier engine with comms and error feedback, on the sim
-and mesh executors; the simulated runtime (``EngineConfig.runtime``: per-
-worker straggler clocks, per-level link costs, elastic deadline drops as
-masked rounds) and async stale-sync execution (``EngineConfig.
-async_levels``: posted snapshots folded as elementwise deltas), on the sim
-executor.  Subsystems of the JAX engine that are not ported raise
-``NotImplementedError`` naming the ROADMAP item that will port them:
-``metrics`` (A7b) and ``population`` (A7c); the mesh executor refuses drop
-rounds and stale folds (A7d).
+and mesh executors; on the sim executor also the simulated runtime
+(``EngineConfig.runtime``: per-worker straggler clocks, per-level link
+costs, elastic deadline drops as masked rounds), async stale-sync
+execution (``EngineConfig.async_levels``: posted snapshots folded as
+elementwise deltas), the in-round divergence probes with their metrics
+bus and traces (``EngineConfig.metrics``, :mod:`repro_torch.obs`) and the
+population regime (``EngineConfig.population``: virtual clients sampled
+per round, hydrated into the (k, ...) state and folded back into one
+server model, :meth:`HSGD.run_sampled`).  The mesh executor refuses drop
+rounds, stale folds, metrics plans and populations (ROADMAP A7d).
 """
 from __future__ import annotations
 
@@ -44,8 +46,14 @@ from repro_torch.tree import tree_leaves, tree_map
 class EngineConfig:
     """Typed engine configuration, field for field the JAX package's
     (less ``jit``, which has no eager counterpart).  Subsystem fields take
-    whatever their ``make_*`` factory accepts; the unported ones must stay
-    None."""
+    whatever their ``make_*`` factory accepts: ``executor``
+    (:func:`~repro_torch.core.executors.make_executor`), ``comms``
+    (:func:`~repro_torch.comms.sync.make_comms`), ``runtime``
+    (:func:`~repro_torch.runtime.make_runtime`), ``metrics``
+    (:func:`~repro_torch.obs.make_metrics`) and ``population``
+    (:func:`~repro_torch.population.make_population`; binding one switches
+    the engine into the sampled-participation regime, see
+    :meth:`HSGD.run_sampled`)."""
     executor: Any = None
     comms: Any = None
     runtime: Any = None
@@ -59,18 +67,15 @@ class EngineConfig:
     async_levels: Any = None
 
 
-# EngineConfig fields whose subsystems are not ported yet -> ROADMAP item
-_NOT_PORTED = {"metrics": "A7b", "population": "A7c"}
-
-
 @dataclasses.dataclass
 class HSGDState:
-    """Engine state.  The JAX package's ``metrics`` field belongs to a
-    subsystem not ported yet (A7b)."""
+    """Engine state; the fields of the JAX package's, in its order."""
     params: Any      # leading worker axis n
     opt_state: Any   # leading worker axis n
     step: int        # steps taken
     comms: Any = None  # error-feedback residuals (stateful codecs), axis n
+    metrics: Any = None  # probe ring (repro_torch.obs.MetricBuffer); None
+    #   without a metrics plan
     pending: Any = None  # stale-sync slots ({level: StaleSlot}) under async
     #   execution; None without async levels
 
@@ -223,11 +228,6 @@ class HSGD:
     def __init__(self, loss_fn: Callable, optimizer: Optimizer,
                  topology: Topology, config: Optional[EngineConfig] = None):
         config = EngineConfig() if config is None else config
-        for field, item in _NOT_PORTED.items():
-            if getattr(config, field):
-                raise NotImplementedError(
-                    f"EngineConfig.{field} is not ported yet (ROADMAP "
-                    f"{item}); leave it None")
         self.loss_fn = loss_fn
         self.optimizer = optimizer
         self.topology = topology
@@ -239,6 +239,16 @@ class HSGD:
         from repro_torch.comms.sync import make_comms
         self.comms = make_comms(config.comms)
         self.runtime = make_runtime(config.runtime)
+        from repro_torch.obs import make_metrics
+        self.metrics = make_metrics(config.metrics)
+        if self.async_levels and self.metrics is not None \
+                and self.metrics.divergences and not self.metrics.staleness:
+            # async engines get the staleness channel next to the eq. (10)
+            # partition automatically (‖applied − fresh‖² per stale fold)
+            self.metrics = dataclasses.replace(self.metrics, staleness=True)
+        from repro_torch.population import make_population
+        self.population = make_population(config.population)
+        self._population_engine = None
         self._last_clock = None
         from repro_torch.core.executors import make_executor
         self.executor = make_executor(config.executor)
@@ -273,14 +283,14 @@ class HSGD:
             out[lvl] = s
         return out
 
-    def participation(self, clock=None):
+    def participation(self, clock=None, extra=None):
         """This engine's composed Participation view: the topology's static
-        event masks, plus the elastic adapter over ``clock`` when one is
-        passed.  (The reference's ``extra`` part, the population sampler,
-        is ROADMAP A7c.)"""
+        event masks, plus the elastic adapter when a live clock is passed,
+        plus ``extra`` (e.g. the population engine's per-round pinned
+        sampler)."""
         from repro_torch.population import (ElasticParticipation,
                                             StaticParticipation, compose)
-        return compose(StaticParticipation(self.topology),
+        return compose(StaticParticipation(self.topology), extra,
                        ElasticParticipation(clock)
                        if clock is not None else None)
 
@@ -304,8 +314,10 @@ class HSGD:
         params = _replicate(params0, n)
         cstate = self.comms.init_state(params) if self.comms else None
         opt_state = _replicate(self.optimizer.init(params0), n)
+        mbuf = self.metrics.init_buffer(self.topology, dev) \
+            if self.metrics else None
         return self.executor.place(HSGDState(
-            params, opt_state, 0, cstate,
+            params, opt_state, 0, cstate, mbuf,
             self._init_pending(params, opt_state)))
 
     def _init_pending(self, params, opt_state) -> Optional[Dict]:
@@ -355,8 +367,19 @@ class HSGD:
                        for k in ms[0]}
             return grads, metrics
 
+        grad_norm = self.metrics is not None and self.metrics.grad_norm
+
         def local_update(params, opt_state, batch):
             grads, metrics = mean_grads(params, batch)
+            if grad_norm:
+                # per-worker gradient l2 norm; executors mean it over the
+                # worker axis like every other per-step metric.  One
+                # concatenation and one norm, so that the channel costs two
+                # launches a step whatever the leaf count
+                metrics = dict(metrics)
+                metrics["grad_norm"] = torch.linalg.vector_norm(torch.cat(
+                    [g.reshape(-1).to(torch.float32)
+                     for g in tree_leaves(grads)]))
             updates, opt_state = self.optimizer.update(grads, opt_state,
                                                        params)
             params = tree_map(torch.add, params, updates)
@@ -403,7 +426,8 @@ class HSGD:
     # -- schedule-compiled round executor --------------------------------------
     def run_rounds(self, state: HSGDState, batch_fn: Callable[[int], Any],
                    T: int, *, eval_every: int = 0,
-                   eval_fn: Optional[Callable[[HSGDState, int], Dict]] = None
+                   eval_fn: Optional[Callable[[HSGDState, int], Dict]] = None,
+                   trace=None, participation=None
                    ) -> Tuple[HSGDState, List[Dict]]:
         """Run T steps through the schedule-compiled executor: the schedule
         is folded into rounds (``compile_schedule``) and each runs as one
@@ -423,7 +447,28 @@ class HSGD:
         host-side numpy, no device work.  A round whose sync drops someone
         runs through ``round_fn(rnd, masked=True)``, the mask moved to the
         device once.  With ``async_levels``, the rounds carry their static
-        stale ops, resumed at t0 > 0 through :func:`async_warmup`."""
+        stale ops, resumed at t0 > 0 through :func:`async_warmup`.
+
+        With metrics on, the probe pushes one row per sync event into the
+        state's :class:`~repro_torch.obs.MetricBuffer`; this loop drains it
+        with ONE device-to-host copy at eval boundaries, before the ring
+        could wrap and at the end, gives each row its (step, level) back
+        from the schedule and merges the values into the matching records
+        as ``div_global`` / ``div_up_Lℓ`` / ``div_down_Lℓ``.  Records are
+        linted against the metrics bus
+        (:func:`repro_torch.obs.validate_record`).
+
+        ``trace`` takes a :class:`~repro_torch.obs.TraceRecorder`: the
+        runtime clock emits per-worker compute/wait spans and per-level
+        sync spans in simulated time, and drained probe rows become
+        divergence counter tracks; without a runtime, spans fall back to
+        step-index time.
+
+        ``participation`` takes an extra Participation composed with the
+        engine's own (topology masks and the elastic clock): each executed
+        sync consults ``round_mask`` once, and a mask routes the round
+        through the masked executor variant — how the population engine
+        masks a draw's empty slots out of every sync."""
         t0 = state.step
         cut = eval_every if (eval_fn is not None and eval_every) else 0
         full = self.topology.schedule(t0 + T)
@@ -442,12 +487,40 @@ class HSGD:
         if self.runtime is not None:
             clock = self.runtime.clock(self.topology,
                                        self._payload_nbytes(state),
+                                       recorder=trace,
                                        async_levels=self.async_levels or None)
             self._last_clock = clock
-        parts = self.participation(clock=clock) if clock is not None \
-            else None
+        parts = self.participation(clock=clock, extra=participation) \
+            if (clock is not None or participation is not None) else None
+        probes = (self.metrics is not None and self.metrics.divergences
+                  and state.metrics is not None)
+        div_keys = self.metrics.history_keys(self.topology) if probes else ()
+        cap = state.metrics.capacity if probes else 0
+        pending: List[Tuple[int, int]] = []  # (step, level) since last drain
+        probe_vals: Dict[int, Dict[str, float]] = {}
         dev = tree_leaves(state.params)[0].device
         drops: Dict[int, int] = {}
+
+        def ts_of(step_no: int) -> float:
+            return sim[step_no - t0 - 1][0] if clock is not None \
+                else float(step_no)
+
+        def drain(st: HSGDState) -> HSGDState:
+            # one device-to-host copy for everything pushed since the last
+            # drain; rows get their (step, level) back from the schedule
+            if not pending:
+                return st
+            mb = st.metrics
+            k = mb.count
+            assert k == len(pending) <= cap, (k, len(pending), cap)
+            for (step_no, lvl), row in zip(pending, mb.rows[:k].tolist()):
+                vals = {key: float(v) for key, v in zip(div_keys, row)}
+                probe_vals[step_no] = vals
+                if trace is not None:
+                    trace.divergences(step_no, lvl, ts_of(step_no), vals)
+            pending.clear()
+            return dataclasses.replace(st, metrics=mb.reset())
+
         raw: List[Tuple[int, int, Dict]] = []  # (t_end, n_local, metrics)
         evals: Dict[int, Dict] = {}
         t = t0
@@ -463,6 +536,21 @@ class HSGD:
                     mask = parts.round_mask(rnd.event)
                     # the sync belongs to the round's last step
                     sim[-1] = (clock.time_s, clock.level_seconds())
+            elif parts is not None and rnd.event is not None:
+                mask = parts.round_mask(rnd.event)
+            if clock is None and trace is not None:
+                # no runtime: keep the trace well-formed in step-index time
+                trace.name_process(0, "engine")
+                trace.name_thread(0, 0, "rounds (step-index time)")
+                trace.complete(f"round x{rnd.n_local}", float(t),
+                               float(rnd.n_local), pid=0, tid=0)
+                if rnd.event is not None:
+                    trace.sync_span(
+                        rnd.event.level, float(t + rnd.n_local), 0.0,
+                        payload_bytes=wire[t + rnd.n_local - t0 - 1]
+                        if wire is not None else 0)
+            if probes and rnd.event is not None and len(pending) >= cap:
+                state = drain(state)   # never let the ring wrap
             if mask is None:
                 state, metrics = self.round_fn(rnd)(state, batches)
             else:
@@ -470,15 +558,22 @@ class HSGD:
                     state, batches, torch.as_tensor(mask, device=dev))
             t += rnd.n_local
             raw.append((t, rnd.n_local, metrics))
-            if clock is not None and rnd.event is not None:
-                drops[t] = 0 if mask is None else int((~mask).sum())
+            if rnd.event is not None:
+                if probes:
+                    pending.append((t, rnd.event.level))
+                if clock is not None:
+                    drops[t] = 0 if mask is None else int((~mask).sum())
             if eval_fn is not None and eval_every and \
                     (t % eval_every == 0 or t == t0 + T):
+                if probes:
+                    state = drain(state)
                 evals[t] = eval_fn(state, t - 1)
+        if probes:
+            state = drain(state)
         # metrics stay on the device until here, one transfer per round
         history: List[Dict] = []
         for t_end, n_local, metrics in raw:
-            vals = {k: v.tolist() for k, v in metrics.items()}
+            vals = _to_host(metrics)
             for i in range(n_local):
                 step_no = t_end - n_local + i + 1
                 rec = {"t": step_no,
@@ -491,9 +586,83 @@ class HSGD:
                     rec["sim_sync_s"] = sync_s
                     if step_no in drops:
                         rec["dropped"] = drops[step_no]
+                rec.update(probe_vals.get(step_no, {}))
                 rec.update(evals.get(step_no, {}))
                 history.append(rec)
+        if self.metrics is not None:
+            from repro_torch.obs import validate_record
+            for rec in history:
+                errs = validate_record(rec)
+                if errs:
+                    raise ValueError(
+                        "metrics-bus violations in run_rounds history at "
+                        f"t={rec.get('t')}: " + "; ".join(errs))
         return state, history
+
+    def drain_metrics(self, state: HSGDState
+                      ) -> Tuple[HSGDState, List[Dict[str, float]]]:
+        """Drain the probe buffer outside :meth:`run_rounds` (the per-step
+        :meth:`step` path pushes rows but never drains): one device-to-host
+        copy; returns ``(state-with-reset-buffer, rows)``, each row a
+        ``{div_*: value}`` dict in push order.  If more than
+        ``Metrics.capacity`` rows were pushed since the last drain, only the
+        most recent ``capacity`` survive (the ring wrapped)."""
+        if self.metrics is None or state.metrics is None:
+            return state, []
+        mb = state.metrics
+        k, cap = mb.count, mb.capacity
+        order = range(k) if k <= cap \
+            else [i % cap for i in range(k - cap, k)]
+        keys = self.metrics.history_keys(self.topology)
+        host = mb.rows.tolist()
+        rows = [{key: float(v) for key, v in zip(keys, host[i])}
+                for i in order]
+        return dataclasses.replace(state, metrics=mb.reset()), rows
+
+    # -- population regime -----------------------------------------------------
+    def population_engine(self):
+        """The lazily built :class:`~repro_torch.population.PopulationEngine`
+        behind :meth:`run_sampled` (requires ``config.population``)."""
+        if self.population is None:
+            raise ValueError(
+                "no population bound — construct the engine with "
+                "EngineConfig(population=Population(cells=...)) to use the "
+                "sampled-participation regime")
+        if self._population_engine is None:
+            from repro_torch.population import PopulationEngine
+            self._population_engine = PopulationEngine(self)
+        return self._population_engine
+
+    def init_server(self, generator: torch.Generator, model_init: Callable,
+                    *, device: DeviceLike = "cuda"):
+        """Single-replica :class:`~repro_torch.population.ServerState` (the
+        population regime's counterpart of :meth:`init` — no worker axis;
+        peak state memory in this regime is bounded by k = topology.n)."""
+        return self.population_engine().init_server(generator, model_init,
+                                                    device=device)
+
+    def init_server_from_params(self, params, *,
+                                device: DeviceLike = "cuda"):
+        """:meth:`init_server` from given params (a tree of tensors, e.g.
+        the reference's exported draw), as :meth:`init_from_params`."""
+        return self.population_engine().init_server_from_params(
+            params, device=device)
+
+    def run_sampled(self, server, batch_fn, rounds: int, *, sizes=None,
+                    eval_every: int = 0, eval_fn=None):
+        """Run ``rounds`` sampling rounds of the population regime: each
+        draws k = topology.n virtual clients (hierarchically, pure in
+        ``(seed, round)``), hydrates them into the (k, ...) state, runs one
+        global period on the unchanged round executor, and folds the
+        results back into the server model with dataset-size × staleness
+        weights (``sizes``: optional ``client_id -> dataset size``, e.g.
+        ``PopulationShards.client_size``).  ``batch_fn(client_ids, t)``
+        returns the global step t's batch for the drawn clients (leading
+        axis k).  Returns ``(ServerState, per-round history)``; each record
+        carries the ``participation`` channel."""
+        return self.population_engine().run(
+            server, batch_fn, rounds, sizes=sizes, eval_every=eval_every,
+            eval_fn=eval_fn)
 
     # -- inspection ------------------------------------------------------------
     def wire_stats(self, state: HSGDState):
@@ -517,6 +686,13 @@ class HSGD:
                         for a in arrays]
             n_elements += n
         return WireStats(self.topology, tuple(payload), n_elements)
+
+    def audit(self, state: HSGDState, batch_fn=None, **kwargs):
+        """The reference's static audit walks jaxprs; its port is ROADMAP
+        A11."""
+        raise NotImplementedError(
+            "HSGD.audit is not ported yet (ROADMAP A11: the analysis layer "
+            "walks compiled graphs)")
 
     def _payload_nbytes(self, state: HSGDState) -> int:
         """Per-worker bytes ONE sync payload puts on the wire, which the
@@ -551,6 +727,16 @@ class HSGD:
         """Worker j's params (under the mesh executor, from the rows every
         rank gathers, as in :meth:`mean_params`)."""
         return tree_map(lambda x: x[j], self.executor.gather(state.params))
+
+
+def _to_host(metrics: Dict[str, torch.Tensor]) -> Dict[str, List]:
+    """A round's stacked per-step metrics as host lists, with one
+    device-to-host copy for all channels when they share a dtype (the
+    probes' ``grad_norm`` channel then costs no extra copy)."""
+    keys = list(metrics)
+    if len({metrics[k].dtype for k in keys}) != 1:
+        return {k: v.tolist() for k, v in metrics.items()}
+    return dict(zip(keys, torch.stack([metrics[k] for k in keys]).tolist()))
 
 
 def _moments_only(opt_state):

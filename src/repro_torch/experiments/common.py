@@ -119,15 +119,16 @@ def steps_per_sec(ds, model, topology, T: int = 256, lr: float = 0.08,
                   bs: int = 10, use_rounds: bool = False,
                   warmup: int = 32, backend: str = "sim",
                   comms=None, device: DeviceLike = "cuda",
-                  init_params=None) -> float:
+                  init_params=None, metrics=None) -> float:
     """Wall-clock throughput of the trajectory harness (no evals): the
     per-step dispatcher vs the schedule-compiled round executor, host clock
-    after a ``synchronize`` on both ends."""
+    after a ``synchronize`` on both ends, with an optional comms plan and
+    metrics plan (``metrics="on"`` for the probes' overhead contract)."""
     dev = resolve_device(device)
     if isinstance(topology, HierarchySpec):
         topology = make_topology(topology)
     eng = HSGD(model.loss, sgd(lr), topology,
-               EngineConfig(executor=backend, comms=comms))
+               EngineConfig(executor=backend, comms=comms, metrics=metrics))
     st = init_state(eng, model, 0, dev, init_params)
     # warmup must span >= one full global period so EVERY step/round
     # signature is built before the timed region, and end on a period

@@ -12,9 +12,8 @@ The engine grew three participation-like surfaces, each with its own shape:
 This module names the protocol they all implement — three hooks at three
 temporal scopes — and adapts each existing surface onto it;
 ``HSGD.run_rounds`` consults the composed protocol object instead of
-reaching into the clock directly.  The population sampler's adapter
-(``SampledParticipation``) and the population engine that pins it per
-round are ROADMAP A7c, not ported yet.
+reaching into the clock directly, and the population engine pins a
+:class:`SampledParticipation` per round.
 
 Hooks
 -----
@@ -31,15 +30,17 @@ Hooks
 ``draw(round_index)``
     Population: which *virtual clients* occupy the slots this round, pure
     in ``(seed, round)``; None means the slots ARE the workers (the
-    materialized regime, the only one ported yet).
+    materialized regime).
 """
 from __future__ import annotations
 
 import abc
-from typing import Any, Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch.population.sampler import (Draw, HierarchicalSampler,
+                                            Population)
 
 
 class Participation(abc.ABC):
@@ -52,7 +53,7 @@ class Participation(abc.ABC):
     def round_mask(self, event) -> Optional[np.ndarray]:
         return None
 
-    def draw(self, round_index: int) -> Optional[Any]:
+    def draw(self, round_index: int) -> Optional[Draw]:
         return None
 
     def describe(self) -> Dict:
@@ -91,6 +92,37 @@ class ElasticParticipation(Participation):
         return {"kind": "elastic", "policy": repr(self.clock.model.policy)}
 
 
+class SampledParticipation(Participation):
+    """The population sampler behind the protocol.  ``draw`` is pure in
+    ``(seed, round)``; ``round_mask`` masks the round's *empty slots*
+    (drawn clients that never responded) out of every sync, composing the
+    sampler with the existing elastic-drop machinery."""
+
+    def __init__(self, population: Population,
+                 group_sizes: Tuple[int, ...],
+                 round_index: Optional[int] = None):
+        self.population = population
+        self.sampler = HierarchicalSampler(population, group_sizes)
+        self._pinned: Optional[Draw] = (
+            None if round_index is None else self.sampler.draw(round_index))
+
+    def draw(self, round_index: int) -> Draw:
+        if self._pinned is not None and \
+                self._pinned.round_index == round_index:
+            return self._pinned
+        return self.sampler.draw(round_index)
+
+    def round_mask(self, event) -> Optional[np.ndarray]:
+        d = self._pinned
+        if d is None:
+            return None
+        act = d.active
+        return None if act.all() else act.copy()
+
+    def describe(self) -> Dict:
+        return {"kind": "sampled", **self.population.describe()}
+
+
 class ComposedParticipation(Participation):
     """AND of masks, first non-None draw.  ``round_mask`` calls every
     member exactly once (members may consume — the elastic adapter does)."""
@@ -114,7 +146,7 @@ class ComposedParticipation(Participation):
     def round_mask(self, event) -> Optional[np.ndarray]:
         return self._and([p.round_mask(event) for p in self.parts])
 
-    def draw(self, round_index: int) -> Optional[Any]:
+    def draw(self, round_index: int) -> Optional[Draw]:
         for p in self.parts:
             d = p.draw(round_index)
             if d is not None:

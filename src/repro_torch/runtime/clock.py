@@ -99,10 +99,10 @@ class RuntimeModel:
     def clock(self, topology, payload_bytes: int,
               recorder=None, async_levels=None) -> "SimClock":
         """Bind to a topology + per-worker payload size -> a fresh clock.
-        ``recorder`` (duck-typed, the reference's ``TraceRecorder``
-        interface; the port has none yet, so it stays None until ROADMAP
-        A7b) gets per-worker compute/wait spans and per-subtree sync spans
-        in simulated time.
+        ``recorder`` (duck-typed, :class:`repro_torch.obs.TraceRecorder`'s
+        interface; ``run_rounds(..., trace=...)`` passes it) gets
+        per-worker compute/wait spans and per-subtree sync spans in
+        simulated time.
         ``async_levels`` ({level: staleness}) prices those levels' syncs
         as stale (non-barrier) boundaries — see :meth:`SimClock.sync`."""
         return SimClock(self, topology, payload_bytes, recorder,

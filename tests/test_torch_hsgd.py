@@ -198,14 +198,17 @@ def test_init_from_generator_replicates_one_model():
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("runtime", None, None), ("metrics", "on", "A7b"),
-    ("population", object(), "A7c"), ("async_levels", {1: 1}, None)],
+    ("runtime", None, None), ("metrics", "on", None),
+    ("population", (4, 4), None), ("async_levels", {1: 1}, None)],
     ids=["runtime", "metrics", "population", "async_levels"])
 def test_unported_subsystems_raise(field, value, item):
-    """``metrics`` (A7b) and ``population`` (A7c) still raise naming their
-    ROADMAP item; ``runtime`` and ``async_levels`` are ported (A7a) and
-    build a working engine (held against the reference in
-    ``tests/test_torch_runtime.py`` and ``tests/test_torch_async.py``)."""
+    """Every subsystem of the reference's ``EngineConfig`` is ported now
+    and builds a working engine: ``runtime`` and ``async_levels`` (A7a,
+    held against the reference in ``tests/test_torch_runtime.py`` and
+    ``tests/test_torch_async.py``), ``metrics`` (A7b) and ``population``
+    (A7c, held in ``tests/test_torch_obs.py`` and
+    ``tests/test_torch_population.py``).  ``item`` stays for a subsystem
+    that would still raise naming its ROADMAP item; none does."""
     from repro_torch.runtime import RuntimeModel
     pm = SimpleModel(SimpleConfig(**MODEL))
     topo = P.make_topology("two_level", n=4, N=2, G=4, I=2)
@@ -217,13 +220,25 @@ def test_unported_subsystems_raise(field, value, item):
         value = RuntimeModel(compute_s=1.0, straggler="fixed:0.25:8",
                              policy=1.0)
     eng = P.HSGD(pm.loss, sgd(0.1), topo, P.EngineConfig(**{field: value}))
+    batch = lambda t: {k: v[:4] for k, v in _batch_p(t).items()}
+    if field == "population":
+        server = eng.init_server(torch.Generator().manual_seed(0), pm.init,
+                                 device="cpu")
+        server, hist = eng.run_sampled(server, lambda ids, t: batch(t), 2)
+        assert server.round == 2 and [h["t"] for h in hist] == [4, 8]
+        assert all(np.isfinite(r["ce"]) for r in hist)
+        assert hist[-1]["participation"]["population"] == 16
+        return
     st = eng.init(torch.Generator().manual_seed(0), pm.init, device="cpu")
-    st, hist = eng.run_rounds(st, lambda t: {
-        k: v[:4] for k, v in _batch_p(t).items()}, T=8)
+    st, hist = eng.run_rounds(st, batch, T=8)
     assert st.step == 8 and all(np.isfinite(r["ce"]) for r in hist)
     if field == "runtime":
         assert hist[-1]["sim_time_s"] > 8.0
         assert eng.runtime_report()["dropped"][1] > 0
+    elif field == "metrics":
+        assert [r["t"] for r in hist if "div_global" in r] == [2, 4, 6, 8]
+        assert all(r["grad_norm"] > 0 for r in hist)
+        assert st.metrics.count == 0
     else:
         assert sorted(st.pending) == [1]
         with pytest.raises(NotImplementedError, match="run_rounds"):

@@ -63,6 +63,10 @@ def test_importing_the_port_loads_no_jax():
             "import repro_torch.experiments.common\n"
             "import repro_torch.runtime, repro_torch.population\n"
             "import repro_torch.experiments.bench_runtime\n"
+            "import repro_torch.obs, repro_torch.obs.__main__\n"
+            "import repro_torch.population.engine\n"
+            "import repro_torch.experiments.bench_obs\n"
+            "import repro_torch.experiments.bench_population\n"
             "from repro_torch.experiments import (fig3_sandwich,\n"
             "    table2_time_to_acc, fig3c_grouping, fig_e4_participation,\n"
             "    fig_e8_multilevel, table1_bounds, plan_deployment)\n"
@@ -83,13 +87,15 @@ def no_cuda():
 
 
 def test_entry_points_refuse_missing_cuda(no_cuda):
-    from repro_torch.core import HSGD, local_sgd, make_topology
+    from repro_torch.core import EngineConfig, HSGD, local_sgd, make_topology
     from repro_torch.device import resolve_device
-    from repro_torch.experiments import (common, fig3_sandwich,
+    from repro_torch.experiments import (bench_obs, bench_population,
+                                         common, fig3_sandwich,
                                          fig3c_grouping, fig_e4_participation,
                                          fig_e8_multilevel,
                                          table2_time_to_acc)
     from repro_torch.launch.mesh import launch
+    from repro_torch.obs.__main__ import main as obs_main
     from repro_torch.models import (SimpleConfig, SimpleModel,
                                     params_from_numpy, params_to_numpy)
     from repro_torch.optim import sgd
@@ -101,6 +107,9 @@ def test_entry_points_refuse_missing_cuda(no_cuda):
     gen = torch.Generator().manual_seed(0)
     params = model.init(gen, device="cpu")
     world = common.make_world(8)
+    sampled = HSGD(model.loss, sgd(0.1),
+                   make_topology("two_level", n=4, N=2, G=4, I=2),
+                   EngineConfig(population=(4, 4)))
     calls = [
         lambda: resolve_device(),
         lambda: model.init(gen),
@@ -121,6 +130,11 @@ def test_entry_points_refuse_missing_cuda(no_cuda):
             local_sgd(8, 4)), 1),
         lambda: common.steps_per_sec(*world, local_sgd(8, 4), T=1),
         lambda: fig3c_grouping.measured(*world, "cuda"),
+        lambda: sampled.init_server(gen, model.init),
+        lambda: sampled.init_server_from_params(params),
+        lambda: bench_obs.main(),
+        lambda: bench_population.main(),
+        lambda: obs_main([]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="cuda"):
