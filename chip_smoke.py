@@ -71,7 +71,27 @@ or of the JAX package.  It
    product and a sum, not a batched cuBLAS matmul), and the sim's steps/s
    under that form must keep DENSE_FORM_MIN_RATIO of the matmul form's,
    timed in turns in this phase; prints wall seconds and steps/s of mesh
-   and sim;
+   and sim.  In the same launch, the runtime, async, probe and population
+   paths on the mesh (``_mesh_a7d_runs``): exact and production elastic
+   int8 (a bursty runtime with ``DeadlineElastic(2.0)``, which must drop
+   workers), exact async int8 ``{1: 1}`` and sign ``{2: 1}``, production
+   async top-k ``{1: 1}``, exact async int8 and production int8 with
+   probes on, and an exact population at MESH_POP_CELLS under int8 for
+   MESH_POP_ROUNDS rounds: exact runs bit for bit the card's sim (params,
+   residuals, pending slots, loss; the population's server), production
+   runs within MESH_ATOL and LOSS_RTOL, every rank's ``sim_time_s`` and
+   ``dropped`` history equal to the sim's, probe rows within
+   MESH_PROBE_RTOL relative of the sim's (the gap printed) and the params
+   bit for bit the probes-off run's, every rank's state, rows and draws the
+   same, ``int8_scale_quantize`` / ``sign_pack`` launched on every rank
+   and ``topk_decode_reduce`` exactly once per wire sync (fresh or
+   posted) on every rank.  Then the twins' mesh legs at full size through
+   their entry points, each in its own launch of eight gloo ranks on the
+   card: ``bench_runtime.matrix(backend="mesh")`` (T=96, every regime's
+   ``elastic_mesh`` and bursty's ``async_mesh``, which the twin holds to
+   its sim arms) and ``bench_population.run(quick=False,
+   backend="mesh")`` (the 10^6-client point, server bit for bit the
+   sim's); steps/s of rank 0 beside the sim's printed, not asserted;
 5. attention kernel phase: holds ``flash_attention`` against its plain
    version (``attention_ref``) on the card at ATTN_CASES, to the
    reference's tolerances (2e-5 in float32, 2e-2 in bfloat16), and times
@@ -200,7 +220,9 @@ or of the JAX package.  It
    under top-k, one round's nonzero fold-back of the same slots on the
    card within POP_TOPK_RTOL of the CPU's, and whole runs within
    LOSS_RTOL in server loss, with the params' gap printed;
-14. prints one ``{"ssm": ...}`` JSON line with the SSM throughputs, one
+14. writes the records below, with the card's line, to
+   ``chiprun_out/chip_smoke.json``, then prints one ``{"ssm": ...}`` JSON
+   line with the SSM throughputs, one
    ``{"topk_sim": ..., "mesh": ...}`` line, one ``{"experiments": ...}``
    line, one ``{"runtime": ...}`` line, one ``{"obs": ...}`` line, one
    ``{"population": ...}`` line, one ``{"kernels": [...]}`` JSON line (all
@@ -373,8 +395,10 @@ MESH_ATOL = 1e-3                 # tests/test_differential.py:247
 # DENSE_FORM_TURNS turns, each one run of either form back to back.  The
 # host-bound runs spread by 10-20% from run to run on one card (PERF.md),
 # in slow drifts, so the forms are compared by the median over the turns
-# of the ratio within a turn (best runs and medians printed beside)
-DENSE_FORM_TURNS = 32
+# of the ratio within a turn (best runs and medians printed beside).  One
+# call's ratios spread from 0.76 to 1.23 (PERF.md §6, PR 23), a standard
+# error of ~2.4% for the median of 32 turns, so it takes 64
+DENSE_FORM_TURNS = 64
 DENSE_FORM_MIN_RATIO = 0.95
 # exact mode against sim where the two are not bit for bit (ROADMAP C)
 EXACT_FALLBACK_RTOL = 1e-6
@@ -718,7 +742,24 @@ def quickstart(device: str, comms, spec=None, opt=None, executor=None,
             "params": [p.cpu() for p in tree_leaves(gather(state.params))],
             "comms": None if state.comms is None else
             [r.cpu() for r in tree_leaves(gather(state.comms))],
+            "pending": None if state.pending is None else
+            pending_leaves(gather(state.pending)),
             "history": history}
+
+
+def pending_leaves(pending):
+    """The tensors of pending stale slots ({level: StaleSlot}) on the CPU,
+    slot by slot, field by field."""
+    from repro_torch.tree import tree_leaves
+    out = []
+    for lvl in sorted(pending):
+        slot = pending[lvl]
+        for snap in slot.snaps:
+            for field in ("params", "opt", "agg", "agg_opt"):
+                out += [t.cpu() for t in tree_leaves(getattr(snap, field))]
+        if slot.residual is not None:
+            out += [t.cpu() for t in tree_leaves(slot.residual)]
+    return out
 
 
 @contextlib.contextmanager
@@ -986,10 +1027,122 @@ def wire_lowering_check(device: str):
     return out
 
 
+# The mesh phase's runs of the runtime, async, probe and population paths
+# (A7d), in the same launch: (label, comms, EngineConfig fields, exact, the
+# kernels every rank must launch).  Exact runs must be the card's sim bit
+# for bit (params, residuals, pending slots, loss), production runs within
+# MESH_ATOL and LOSS_RTOL; "probes" runs are held to their probes-off twin
+# (MESH_PROBES_OFF) bit for bit in params and to the sim's probe rows
+# within MESH_PROBE_RTOL
+def _mesh_a7d_runs():
+    from repro_torch.comms import Comms
+    from repro_torch.runtime import DeadlineElastic, RuntimeModel
+
+    def elastic():
+        return {"runtime": RuntimeModel(straggler="bursty:0.25:0.5:2.5",
+                                        policy=DeadlineElastic(2.0))}
+    return (
+        ("exact elastic int8", lambda: "int8", elastic, True,
+         ("int8_scale_quantize",)),
+        ("elastic int8", lambda: "int8", elastic, False,
+         ("int8_scale_quantize",)),
+        ("exact async int8", lambda: "int8",
+         lambda: {"async_levels": {1: 1}}, True, ("int8_scale_quantize",)),
+        ("exact async sign", lambda: "sign",
+         lambda: {"async_levels": {2: 1}}, True, ("sign_pack",)),
+        ("async topk", lambda: Comms("topk", rate=TOPK_RATE),
+         lambda: {"async_levels": {1: 1}}, False, ("topk_decode_reduce",)),
+        ("exact async int8 probes", lambda: "int8",
+         lambda: {"async_levels": {1: 1}, "metrics": "on"}, True,
+         ("int8_scale_quantize",)),
+        ("probes int8", lambda: "int8", lambda: {"metrics": "on"}, False,
+         ("int8_scale_quantize",)),
+    )
+
+
+MESH_PROBES_OFF = {"exact async int8 probes": "exact async int8",
+                   "probes int8": "int8"}
+MESH_PROBE_PAIRS = 3             # probes off / on runs timed in turns
+MESH_PROBE_RTOL = 1e-4           # tests/test_obs.py: sim vs mesh rows
+MESH_POP_CELLS, MESH_POP_ROUNDS = (2, 4), 8
+
+
+def count_collectives():
+    """Count every collective this process's ``MeshAxes`` run (those over
+    at least one axis) from now on: returns the counter, a dict whose
+    ``"n"`` the caller resets."""
+    from repro_torch.launch import mesh as lm
+    counts = {"n": 0}
+    reduce, gather = lm.MeshAxes._reduce, lm.MeshAxes.all_gather
+
+    def counted_reduce(self, t, op):
+        counts["n"] += bool(self.names)
+        return reduce(self, t, op)
+
+    def counted_gather(self, t):
+        counts["n"] += bool(self.names)
+        return gather(self, t)
+    lm.MeshAxes._reduce, lm.MeshAxes.all_gather = \
+        counted_reduce, counted_gather
+    return counts
+
+
+def _clock(history):
+    return [(r.get("sim_time_s"), r.get("dropped")) for r in history]
+
+
+def _rows(history):
+    return [{k: v for k, v in r.items() if k.startswith("div_")}
+            for r in history if "div_global" in r]
+
+
+def wire_syncs(spec, async_levels, T=96):
+    """The syncs that go through the codec's wire in a run of the
+    quickstart world: one per fresh sync and one per posted (snapshot)
+    stale sync."""
+    from repro_torch.core import (HierarchySpec, compile_schedule,
+                                  make_topology)
+    topo = make_topology("two_level", n=8, N=2, G=16, I=4) if spec is None \
+        else make_topology(HierarchySpec(*spec))
+    n = 0
+    for rnd in compile_schedule(topo.schedule(T),
+                                async_levels=async_levels or None):
+        if rnd.event is not None:
+            n += sum(op.snapshot for op in rnd.stale)
+            n += not (rnd.stale and rnd.stale[-1].snapshot)
+    return n
+
+
+def population_run(device, executor=None):
+    """``run_sampled`` of bench_population's world at MESH_POP_CELLS under
+    int8 for MESH_POP_ROUNDS rounds, on the sim or ``executor``: server
+    loss and params, the draws, launches and seconds."""
+    import torch
+    from repro_torch.kernels import comms as kern
+    from repro_torch.tree import tree_leaves
+    eng, server, batch, loss = _pop_engine(device, "int8", MESH_POP_CELLS,
+                                           executor=executor)
+    popeng = eng.population_engine()
+    draws = [popeng.sampler.draw(r).client_ids.tolist()
+             for r in range(MESH_POP_ROUNDS)]
+    kern.reset_launch_counts()
+    t0 = time.perf_counter()
+    server, hist = eng.run_sampled(server, batch, MESH_POP_ROUNDS)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return {"loss": loss(server), "draws": draws, "seconds": seconds,
+            "steps_per_s": MESH_POP_ROUNDS * popeng.round_steps / seconds,
+            "launches": dict(kern.launch_counts),
+            "params": [p.cpu() for p in tree_leaves(server.params)],
+            "participation": [h["participation"] for h in hist]}
+
+
 def _digest(run) -> str:
     import hashlib
     h = hashlib.sha256()
-    for t in run["params"] + (run["comms"] or []):
+    for t in run["params"] + (run.get("comms") or []) + \
+            (run.get("pending") or []):
         h.update(t.numpy().tobytes())
     return h.hexdigest()
 
@@ -1004,11 +1157,31 @@ def mesh_rank(rank: int, device: str):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     out, summary = {}, {}
+    collectives = count_collectives()
     for label, make, spec, exact, _ in _mesh_runs():
+        collectives["n"] = 0
         run = quickstart(device, make(), spec,
                          executor=MeshExecutor(exact=exact))
+        run["collectives"] = collectives["n"]
         out[label] = run
         summary[label] = (run["launches"], run["seconds"], _digest(run))
+    for label, make, cfg, exact, _ in _mesh_a7d_runs():
+        collectives["n"] = 0
+        run = quickstart(device, make(), executor=MeshExecutor(exact=exact),
+                         **cfg())
+        run["collectives"] = collectives["n"]
+        out[label] = run
+        summary[label] = (run["launches"], run["seconds"], _digest(run),
+                          _clock(run["history"]), _rows(run["history"]))
+    # the probes' host cost on the mesh: production int8 off / on in turns
+    out["probe pairs"] = [
+        [quickstart(device, "int8", executor=MeshExecutor(),
+                    **({"metrics": "on"} if on else {}))["steps_per_s"]
+         for on in (False, True)] for _ in range(MESH_PROBE_PAIRS)]
+    run = population_run(device, MeshExecutor(exact=True))
+    out["exact population"] = run
+    summary["exact population"] = (run["launches"], run["seconds"],
+                                   _digest(run), run["draws"])
     summary["lowering"] = wire_lowering_check(device)
     everyone = [None] * dist.get_world_size()
     dist.all_gather_object(everyone, summary)
@@ -1214,6 +1387,223 @@ def mesh_phase(torch, device: str = "cuda"):
             check(rel <= LOSS_RTOL, f"mesh {label}: loss {mesh['loss']} vs "
                   f"sim {sim['loss']}, relative difference {rel}")
         out["runs"][label] = rec
+    out["a7d"] = mesh_a7d_checks(torch, res, device)
+    out["launches"] = out["a7d"].pop("launches")
+    out["twins"] = mesh_twins(device)
+    return out
+
+
+def mesh_a7d_checks(torch, res, device: str):
+    """The runs of ``_mesh_a7d_runs()`` and the exact population from the
+    mesh launch ``res``, against the same runs on the card's sim (see the
+    module docstring, 4c).  Returns their record, with the kernels'
+    launches per run, summed over the ranks, under ``launches``."""
+    out, launches = {"runs": {}}, {}
+    mesh_runs = {label: (make, cfg, exact, kernels)
+                 for label, make, cfg, exact, kernels in _mesh_a7d_runs()}
+    for label, (make, cfg, exact, kernels) in mesh_runs.items():
+        mesh = res["runs"][label]
+        ranks = [r[label] for r in res["ranks"]]
+        sim = quickstart(device, make(), **cfg())
+        diff = max(float((a - b).abs().max())
+                   for a, b in zip(mesh["params"], sim["params"]))
+        rel = abs(mesh["loss"] - sim["loss"]) / abs(sim["loss"])
+        al = cfg().get("async_levels")
+        syncs = wire_syncs(None, al)
+        per_rank = {k: [r[0][k] for r in ranks] for k in ranks[0][0]}
+        rec = {"loss": mesh["loss"], "sim_loss": sim["loss"],
+               "acc": mesh["acc"], "max_abs_params_diff": diff,
+               "loss_rel": rel, "seconds": mesh["seconds"],
+               "steps_per_s": mesh["steps_per_s"],
+               "sim_seconds": sim["seconds"],
+               "sim_steps_per_s": sim["steps_per_s"],
+               "wire_syncs": syncs,
+               "launches_per_rank": {k: v for k, v in per_rank.items()
+                                     if any(v)}}
+        check(len({r[2] for r in ranks}) == 1,
+              f"mesh {label}: the ranks gathered different states")
+        check(all(r[3] == _clock(sim["history"]) for r in ranks),
+              f"mesh {label}: a rank's sim_time_s / dropped history differs "
+              "from the sim's")
+        check(mesh["wire_bytes"] == sim["wire_bytes"],
+              f"mesh {label}: wire bytes {mesh['wire_bytes']} vs sim "
+              f"{sim['wire_bytes']}")
+        if sim["runtime"] is not None:
+            dropped = sum(sim["runtime"]["dropped"].values())
+            rec["dropped"] = dropped
+            check(dropped > 0 and mesh["runtime"] == sim["runtime"],
+                  f"mesh {label}: dropped {dropped}, runtime report "
+                  f"{mesh['runtime']} vs sim {sim['runtime']}")
+        for name in kernels:
+            want = syncs if name == "topk_decode_reduce" else None
+            check(all(n > 0 for n in per_rank[name]) and
+                  (want is None or per_rank[name] == [want] * MESH_WORKERS),
+                  f"mesh {label}: {name} launched {per_rank[name]} times on "
+                  f"the ranks (want {want or 'at least once'} on each)")
+            if name != "topk_decode_reduce":   # listed per rank, in main
+                launches.setdefault(name, {})[
+                    f"mesh {label} ({MESH_WORKERS} ranks)"] = \
+                    sum(per_rank[name])
+        if "topk_decode_reduce" not in kernels:
+            check(not any(per_rank["topk_decode_reduce"]),
+                  f"mesh {label}: topk_decode_reduce launched")
+        if exact:
+            same = all(torch.equal(a, b)
+                       for a, b in zip(mesh["params"], sim["params"]))
+            for key in ("comms", "pending"):
+                check((mesh[key] is None) == (sim[key] is None),
+                      f"mesh {label}: {key} present on one side only")
+                same = same and all(torch.equal(a, b) for a, b in zip(
+                    mesh[key] or [], sim[key] or []))
+            same = same and mesh["loss"] == sim["loss"]
+            rec["bitwise"] = same
+            check(same, f"mesh {label}: exact mode is not the sim bit for "
+                  f"bit (max |params diff| {diff})")
+        else:
+            check(diff < MESH_ATOL, f"mesh {label}: params differ from "
+                  f"sim by {diff} >= {MESH_ATOL}")
+            check(rel <= LOSS_RTOL, f"mesh {label}: loss {mesh['loss']} vs "
+                  f"sim {sim['loss']}, relative difference {rel}")
+        rows = _rows(mesh["history"])
+        if rows:
+            want = _rows(sim["history"])
+            gap = max(abs(m[k] - w[k]) / max(abs(w[k]), 1e-8)
+                      for m, w in zip(rows, want) for k in w)
+            stale = [r.get("div_staleness", 0.0) for r in rows]
+            rec.update(probe_rows=len(rows), probe_max_rel_gap=gap,
+                       staleness_nonzero=sum(v > 0 for v in stale))
+            # one row per sync event
+            check(len(rows) == len(want) == wire_syncs(None, None) and
+                  all(set(m) == set(w) for m, w in zip(rows, want)),
+                  f"mesh {label}: {len(rows)} probe rows vs the sim's "
+                  f"{len(want)}")
+            check(gap <= MESH_PROBE_RTOL, f"mesh {label}: probe rows "
+                  f"differ from the sim's by {gap} relative")
+            check(all(r[4] == rows for r in ranks),
+                  f"mesh {label}: the ranks' probe rows differ")
+            if al:
+                check(rec["staleness_nonzero"] > 0,
+                      f"mesh {label}: the staleness channel never read a "
+                      "fold")
+            off = res["runs"][MESH_PROBES_OFF[label]]
+            rec["bitwise_probes_off"] = all(
+                torch.equal(a, b) for a, b in zip(mesh["params"],
+                                                  off["params"]))
+            # collectives the probes add, per sync event, on rank 0
+            rec["extra_collectives_per_sync"] = \
+                (mesh["collectives"] - off["collectives"]) / len(rows)
+            check(rec["bitwise_probes_off"], f"mesh {label}: params differ "
+                  f"from the probes-off run {MESH_PROBES_OFF[label]}")
+        print(f"mesh {label}: loss {mesh['loss']!r} acc {mesh['acc']!r} "
+              f"{mesh['steps_per_s']:.1f} steps/s on rank 0 | sim on the "
+              f"card loss {sim['loss']!r} {sim['steps_per_s']:.1f} steps/s "
+              f"| max |params diff| {diff!r}"
+              + (f" | probe rows max relative gap {rec['probe_max_rel_gap']!r}"
+                 f", staleness nonzero at {rec['staleness_nonzero']} syncs, "
+                 f"{rec['extra_collectives_per_sync']!r} collectives more "
+                 "per sync than probes off" if rows else "")
+              + (f" | dropped {rec['dropped']}" if "dropped" in rec else "")
+              + f" | launches per rank {rec['launches_per_rank']} "
+              f"({syncs} wire syncs)", flush=True)
+        out["runs"][label] = rec
+
+    pairs = res["runs"]["probe pairs"]
+    ratios = [on / off for off, on in pairs]
+    out["probe_pairs_steps_per_s"] = pairs
+    out["probe_ratio_median"] = statistics.median(ratios)
+    print(f"mesh probes' host cost, production int8 on rank 0, steps/s "
+          f"(off, on) in turns: {pairs}; on / off {ratios}, median "
+          f"{out['probe_ratio_median']!r} (printed, not asserted)",
+          flush=True)
+
+    label = "exact population"
+    mesh, ranks = res["runs"][label], [r[label] for r in res["ranks"]]
+    sim = population_run(device)
+    per_rank = [r[0]["int8_scale_quantize"] for r in ranks]
+    same = mesh["loss"] == sim["loss"] and all(
+        torch.equal(a, b) for a, b in zip(mesh["params"], sim["params"]))
+    print(f"mesh {label} cells {MESH_POP_CELLS} int8, {MESH_POP_ROUNDS} "
+          f"rounds: server loss {mesh['loss']!r} (sim {sim['loss']!r}), "
+          f"bit for bit {same}; {mesh['steps_per_s']:.1f} steps/s on rank 0 "
+          f"| sim {sim['steps_per_s']:.1f} steps/s | int8_scale_quantize "
+          f"per rank {per_rank}", flush=True)
+    check(same, f"mesh {label}: the server is not the sim's bit for bit")
+    check(len({r[2] for r in ranks}) == 1
+          and all(r[3] == sim["draws"] for r in ranks),
+          f"mesh {label}: the ranks' servers or draws differ")
+    check(mesh["participation"] == sim["participation"],
+          f"mesh {label}: participation differs from the sim's")
+    check(all(n > 0 for n in per_rank),
+          f"mesh {label}: int8_scale_quantize launched {per_rank} times")
+    launches["int8_scale_quantize"][
+        f"mesh {label} ({MESH_WORKERS} ranks)"] = sum(per_rank)
+    out["runs"][label] = {
+        "loss": mesh["loss"], "sim_loss": sim["loss"], "bitwise": same,
+        "steps_per_s": mesh["steps_per_s"],
+        "sim_steps_per_s": sim["steps_per_s"],
+        "launches_per_rank": {"int8_scale_quantize": per_rank}}
+    out["launches"] = launches
+    return out
+
+
+def mesh_twins(device: str):
+    """The twins' mesh legs at full size, through their entry points: the
+    runtime matrix (T=96, the 8 ``elastic_mesh`` and 2 ``async_mesh``
+    arms) and the population sweep (quick=False) with its 10^6-client mesh
+    leg; each in its own launch of eight gloo ranks on the card, held by
+    the twin itself to its sim arms (the twin raises otherwise).  Returns
+    their steps/s beside the sim's."""
+    from repro_torch.experiments import bench_population as bp
+    from repro_torch.experiments import bench_runtime as br
+    out = {"runtime": {}}
+    t0 = time.perf_counter()
+    report = br.matrix(True, device, backend="mesh")
+    out["runtime_wall_s"] = time.perf_counter() - t0
+    for tname, row in report["topologies"].items():
+        for rname in br.REGIMES:
+            for arm in ("elastic_mesh", "async_mesh"):
+                if arm not in row[rname]:
+                    continue
+                rec = row[rname][arm]
+                key = f"{tname}/{rname}/{arm}"
+                sim_arm = row[rname][arm[:-len("_mesh")]]
+                for field in ("steps_to_target", "time_to_target_s",
+                              "total_sim_time_s", "dropped", "synced"):
+                    check(rec[field] == sim_arm[field],
+                          f"bench_runtime {key}: {field} {rec[field]} vs "
+                          f"the sim arm's {sim_arm[field]}")
+                out["runtime"][key] = {
+                    k: rec[k] for k in ("steps_per_s", "sim_steps_per_s",
+                                        "max_abs_ce_diff_vs_sim",
+                                        "time_to_target_s")}
+                tt, sim_tt = (float(r["time_to_target_s"])
+                              for r in (rec, sim_arm))
+                print(f"bench_runtime {key}: {rec['steps_per_s']:.1f} "
+                      f"steps/s on rank 0, sim {rec['sim_steps_per_s']:.1f} "
+                      f"steps/s; time to target {tt!r} s (sim's {sim_tt!r})"
+                      f", max |ce diff| {rec['max_abs_ce_diff_vs_sim']!r}",
+                      flush=True)
+    check(len(out["runtime"]) == len(br.TOPOLOGIES) * (len(br.REGIMES) + 1),
+          f"bench_runtime mesh leg ran {sorted(out['runtime'])}: want every "
+          "regime's elastic_mesh and bursty's async_mesh")
+    t0 = time.perf_counter()
+    pop = bp.run(quick=False, device=device, backend="mesh")
+    out["population_wall_s"] = time.perf_counter() - t0
+    m = pop["mesh"]
+    print(f"bench_population mesh leg ({m['population']} clients, cells "
+          f"{m['cells']}, {pop['rounds']} rounds): {m['time_per_step_s']!r} "
+          f"s per step on rank 0, sim {m['sim_time_per_step_s']!r}; bit for "
+          f"bit {m['params_bitwise_vs_sim']}, ranks agree "
+          f"{m['ranks_agree']}", flush=True)
+    check(m["params_bitwise_vs_sim"] and m["ranks_agree"],
+          "bench_population mesh leg: the exact mesh's server is not the "
+          "sim's bit for bit on every rank")
+    check(pop["bitwise_k_eq_population"] and pop["state_bytes_equal"],
+          "bench_population (quick=False): a sim proof failed")
+    out["population"] = m
+    print(f"mesh twins: runtime matrix and mesh leg "
+          f"{out['runtime_wall_s']:.1f} s, population sweep and mesh leg "
+          f"{out['population_wall_s']:.1f} s", flush=True)
     return out
 
 
@@ -2486,10 +2876,11 @@ def obs_phase(torch, kern, ref):
     return rec
 
 
-def _pop_engine(device, comms=None, cells=POP_CELLS, **pop):
-    """bench_population's world under the population regime; returns the
-    engine, its server state (from ``torch.Generator().manual_seed(0)``),
-    the batch function and the server's loss on a fixed eval batch."""
+def _pop_engine(device, comms=None, cells=POP_CELLS, executor=None, **pop):
+    """bench_population's world under the population regime, on the sim
+    or ``executor``; returns the engine, its server state (from
+    ``torch.Generator().manual_seed(0)``), the batch function and the
+    server's loss on a fixed eval batch."""
     import numpy as np
     import torch
     from repro_torch.core import EngineConfig, HSGD
@@ -2498,7 +2889,8 @@ def _pop_engine(device, comms=None, cells=POP_CELLS, **pop):
     from repro_torch.optim import sgd
     model, shards = bp.make_world()
     eng = HSGD(model.loss, sgd(bp.LR), bp._topology(), EngineConfig(
-        comms=comms, population=Population(cells=cells, seed=bp.SEED, **pop)))
+        comms=comms, executor=executor,
+        population=Population(cells=cells, seed=bp.SEED, **pop)))
     server = eng.init_server(torch.Generator().manual_seed(0), model.init,
                              device=device)
     ev = shards.batch(np.arange(64), 10**6, 8)
@@ -2776,7 +3168,7 @@ def main() -> int:
         runtime = runtime_phase(torch, kern, ref)
         obs = obs_phase(torch, kern, ref)
         population = population_phase(torch, kern, ref)
-        for phase in (runtime, obs, population):
+        for phase in (mesh, runtime, obs, population):
             for name, by_run in phase["launches"].items():
                 launches[name].update(by_run)
     except SmokeFailure as e:
@@ -2807,6 +3199,10 @@ def main() -> int:
                  rec["launches_per_rank"]["topk_decode_reduce"]
                  for label, rec in mesh["runs"].items()
                  if "topk_decode_reduce" in rec["launches_per_rank"]}
+    topk_runs.update({f"mesh {label} (each of {MESH_WORKERS} ranks)":
+                      rec["launches_per_rank"]["topk_decode_reduce"][0]
+                      for label, rec in mesh["a7d"]["runs"].items()
+                      if "topk_decode_reduce" in rec["launches_per_rank"]})
     kernels.append({
         "name": "topk_decode_reduce", "route": "cuda",
         "source": SOURCE.format("topk_reduce"), "replaces": TOPK_TPU_KERNEL,
@@ -2864,18 +3260,24 @@ def main() -> int:
             **({"max_rel_err": rec["max_rel_err"]} if name == "ssd_scan"
                else {}),
         })
-    print(json.dumps({"ssm": {"loss": ssm_fwd["throughput"],
-                              "serving": ssm_served["throughput"]}}))
-    print(json.dumps({"topk_sim": topk_sim, "mesh": mesh}))
-    print(json.dumps({"experiments": {k: v for k, v in experiments.items()
-                                      if k != "mains"}}))
-    print(json.dumps({"runtime": {k: v for k, v in runtime.items()
-                                  if k != "launches"}}))
-    print(json.dumps({"obs": {k: v for k, v in obs.items()
-                              if k != "launches"}}))
-    print(json.dumps({"population": {k: v for k, v in population.items()
-                                     if k != "launches"}}))
-    print(json.dumps({"kernels": kernels}))
+    records = [
+        {"ssm": {"loss": ssm_fwd["throughput"],
+                 "serving": ssm_served["throughput"]}},
+        {"topk_sim": topk_sim, "mesh": mesh},
+        {"experiments": {k: v for k, v in experiments.items()
+                         if k != "mains"}},
+        {"runtime": {k: v for k, v in runtime.items() if k != "launches"}},
+        {"obs": {k: v for k, v in obs.items() if k != "launches"}},
+        {"population": {k: v for k, v in population.items()
+                        if k != "launches"}},
+        {"kernels": kernels}]
+    # the whole record also in a file: the lines outgrow a terminal's tail
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke.json").write_text(
+        json.dumps({"card": card_line(), "records": records}, indent=1))
+    for rec in records:
+        print(json.dumps(rec))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

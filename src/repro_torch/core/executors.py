@@ -16,13 +16,13 @@ of ``repro.core.executors``).
 
 Both keep the same masked-step contract (Algorithm 1: a masked-out worker's
 update is discarded, it contributes nothing and still receives the
-aggregate, and its unconsumed error-feedback residual is kept).  The sim
-also runs the elastic-drop rounds of a runtime (``round_fn(rnd,
-masked=True)``: a dropped worker ran its local updates but neither
-contributes to nor receives the aggregate), the stale folds of async
-execution (``Round.stale``) and the in-round divergence probe of a
-metrics plan (a row of the pre-aggregation params at every sync); the mesh
-refuses all three, and the population regime (ROADMAP A7d).
+aggregate, and its unconsumed error-feedback residual is kept), and both
+run the elastic-drop rounds of a runtime (``round_fn(rnd, masked=True)``:
+a dropped worker ran its local updates but neither contributes to nor
+receives the aggregate), the stale folds of async execution
+(``Round.stale``), the in-round divergence probe of a metrics plan (a row
+of the pre-aggregation params at every sync) and the population regime's
+inner rounds.
 """
 from __future__ import annotations
 
@@ -210,7 +210,9 @@ class Executor(abc.ABC):
                         opt_state = _keep_rows(keep, opt_state, o0)
                         if cstate is not None:
                             cstate = _keep_rows(keep, cstate, c0)
-                        pending = _keep_pending(keep, pending, pend0)
+                        pending = _pending_map(
+                            lambda a, b: _keep_rows(keep, a, b), pending,
+                            pend0)
                 else:
                     params, opt_state, cstate = self._apply_event(
                         params, opt_state, cstate, rnd.event, mask=mask,
@@ -272,16 +274,21 @@ class Executor(abc.ABC):
         if want_staleness:
             own = ops[-1] if ops and ops[-1].snapshot else None
             if own is not None and own.n_fold:
-                fresh = plan.topology.aggregate(pre_params, event, mask=mask)
-                d2 = sum((a - f).to(torch.float32).square()
-                         .reshape(a.shape[0], -1).sum(1)
-                         for a, f in zip(tree_leaves(params),
-                                         tree_leaves(fresh)))
-                stale_val = d2.mean()
+                stale_val = self._staleness(pre_params, params, event, mask)
             else:
                 stale_val = tree_leaves(params)[0].new_zeros(
                     (), dtype=torch.float32)
         return params, opt_state, pending, stale_val
+
+    def _staleness(self, pre_params, params, event: SyncEvent, mask):
+        """The staleness probe scalar: the worker-mean ‖params − fresh‖²,
+        ``fresh`` the codec-free barrier aggregate of the pre-fold params.
+        Here the sim's: ``topology.aggregate`` on the worker block."""
+        fresh = self.plan.topology.aggregate(pre_params, event, mask=mask)
+        d2 = sum((a - f).to(torch.float32).square()
+                 .reshape(a.shape[0], -1).sum(1)
+                 for a, f in zip(tree_leaves(params), tree_leaves(fresh)))
+        return d2.mean()
 
 
 def _wire_eligible(plan, event: SyncEvent) -> bool:
@@ -338,19 +345,27 @@ def _keep_rows(mask: torch.Tensor, new, old):
     return tree_map(sel, new, old)
 
 
-def _keep_pending(mask: torch.Tensor, new, old):
-    """:func:`_keep_rows` over the pending stale slots ({level:
+def _pending_map(fn, pending, *rest):
+    """``fn`` over the tensor trees of pending stale slots ({level:
     StaleSlot}), field by field: the tree helpers walk dicts only, and a
-    slot's residual is None without a stateful codec."""
-    def slot(a: StaleSlot, b: StaleSlot) -> StaleSlot:
-        snaps = tuple(StaleSnap(*(_keep_rows(mask, getattr(x, f.name),
-                                             getattr(y, f.name))
-                                  for f in dataclasses.fields(StaleSnap)))
-                      for x, y in zip(a.snaps, b.snaps))
+    slot's residual is None without a stateful codec.  ``rest`` are slot
+    dicts of the same layout, passed to ``fn`` beside."""
+    def slot(a: StaleSlot, *others: StaleSlot) -> StaleSlot:
+        snaps = tuple(
+            StaleSnap(*(fn(getattr(x, f.name),
+                           *(getattr(y, f.name) for y in ys))
+                        for f in dataclasses.fields(StaleSnap)))
+            for x, *ys in zip(a.snaps, *(o.snaps for o in others)))
         res = None if a.residual is None else \
-            _keep_rows(mask, a.residual, b.residual)
+            fn(a.residual, *(o.residual for o in others))
         return StaleSlot(snaps, res)
-    return {lvl: slot(new[lvl], old[lvl]) for lvl in new}
+    return {lvl: slot(pending[lvl], *(r[lvl] for r in rest))
+            for lvl in pending}
+
+
+def _is_pending(tree) -> bool:
+    return isinstance(tree, dict) and bool(tree) and all(
+        isinstance(v, StaleSlot) for v in tree.values())
 
 
 def _stale_delta(live, agg, snap):
@@ -436,13 +451,18 @@ class MeshExecutor(Executor):
     local work (verification mode); the production lowering matches sim
     to accumulation rounding.
 
-    ``step_fn(event, masked=True)`` is Algorithm 1, as on sim.  The
-    elastic drop rounds (a runtime whose policy drops someone), the stale
-    fold (async levels), the probes of a metrics plan and the population
-    regime are ROADMAP A7d: the mesh refuses an engine with async levels,
-    a metrics plan or a population at bind, and a masked round at
-    ``round_fn``.  A runtime that drops nobody runs unchanged: its clock
-    is on the host."""
+    ``step_fn(event, masked=True)`` is Algorithm 1 and ``round_fn(rnd,
+    masked=True)`` the elastic drop round, as on sim: each rank applies
+    the drop to its own row.  The runtime clock and the population's draws
+    are host numpy from their seeds, the same on every rank.  Async levels
+    fold per row (the posting-time aggregation through the same sync);
+    the staleness scalar is one world mean of this row's distance to the
+    production aggregate of the pre-fold params, in exact mode too, so it
+    matches sim to rounding.  The probe row is
+    :meth:`~repro_torch.obs.Metrics.mesh_row_fn` (L+2 collectives, every
+    value replicated) and the metric buffer is replicated on every rank.
+    A topology without level structure (grouped) refuses divergence
+    probes, as the reference does."""
 
     def __init__(self, mesh=None, *, exact: bool = False):
         super().__init__()
@@ -485,27 +505,13 @@ class MeshExecutor(Executor):
                 f"need a mesh of {topo.n} workers, got "
                 f"{dict(zip(self.mesh.axis_names, sizes))}")
         self.widx = flat_worker_index(self.mesh)
-        if self.plan.async_levels:
+        if spec is None and self.plan.metrics is not None \
+                and self.plan.metrics.divergences:
             raise NotImplementedError(
-                "the mesh executor has no stale fold yet (ROADMAP A7d): run "
-                "async_levels on the sim executor")
-        if self.plan.metrics is not None:
-            raise NotImplementedError(
-                "the mesh executor has no metrics plan yet (ROADMAP A7d: "
-                "its divergence probe and grad_norm channel): run "
-                "metrics on the sim executor, or leave metrics None")
-        if self.plan.population is not None:
-            raise NotImplementedError(
-                "the mesh executor has no population regime yet (ROADMAP "
-                "A7d): run the population on the sim executor")
-
-    def _build_round(self, rnd: Round, masked: bool = False):
-        if masked:
-            raise NotImplementedError(
-                "the mesh executor has no elastic drop rounds yet (ROADMAP "
-                "A7d): run a runtime whose policy drops workers on the sim "
-                "executor")
-        return super()._build_round(rnd)
+                f"{type(topo).__name__} has no named-axis level structure "
+                "for the in-graph divergence probe; run it on the simulator "
+                "(HSGD(..., executor='sim')) or disable divergence probing "
+                "(metrics=Metrics(divergences=False))")
 
     # -- layout ---------------------------------------------------------------
     def _row(self, tree):
@@ -513,18 +519,31 @@ class MeshExecutor(Executor):
         return tree_map(lambda x: x[r:r + 1].clone(), tree)
 
     def place(self, state: HSGDState) -> HSGDState:
-        """Keep this rank's row of a freshly initialized (n, ...) state."""
-        return HSGDState(self._row(state.params), self._row(state.opt_state),
-                         state.step, comms=None if state.comms is None
-                         else self._row(state.comms))
+        """Keep this rank's row of a freshly initialized (n, ...) state:
+        params, opt state, residuals and every pending slot's rows; the
+        probe ring is replicated, so every rank keeps it whole."""
+        carried = ("params", "opt_state", "step", "comms", "metrics",
+                   "pending")
+        assert tuple(f.name for f in dataclasses.fields(HSGDState)) == \
+            carried, "MeshExecutor.place does not lay out every HSGDState " \
+            "field"
+        return HSGDState(
+            self._row(state.params), self._row(state.opt_state), state.step,
+            comms=None if state.comms is None else self._row(state.comms),
+            metrics=state.metrics,
+            pending=None if state.pending is None
+            else _pending_map(self._row, state.pending))
 
     def local_rows(self, batch):
         r = self.widx
         return tree_map(lambda x: x[r:r + 1], batch)
 
     def gather(self, tree):
-        world = self.mesh.world
-        return tree_map(world.all_gather, tree)
+        """The (n, ...) rows of a tree, or of pending stale slots, on
+        every rank."""
+        if _is_pending(tree):
+            return _pending_map(self.gather, tree)
+        return tree_map(self.mesh.world.all_gather, tree)
 
     def _own_mask(self, mask):
         return mask[self.widx:self.widx + 1]
@@ -550,6 +569,32 @@ class MeshExecutor(Executor):
 
         return update
 
+    def _probe_row_fn(self, event: Optional[SyncEvent]):
+        plan = self.plan
+        if event is None or plan.metrics is None \
+                or not plan.metrics.divergences:
+            return None
+        return plan.metrics.mesh_row_fn(plan.topology, self.mesh)
+
+    def _row_weight(self, event: SyncEvent, mask, device):
+        """This rank's weight on a production collective: its runtime mask
+        entry times the static weights (None = plain mean)."""
+        w = self.plan.topology._event_weights(event, mask, device)
+        return None if w is None else w[self.widx]
+
+    def _staleness(self, pre_params, params, event: SyncEvent, mask):
+        """The reference's mesh form: this row's ‖params − fresh‖², fresh
+        the production aggregate of the pre-fold params, then one world
+        mean (replicated)."""
+        topo, mesh, widx = self.plan.topology, self.mesh, self.widx
+        w = self._row_weight(event, mask, tree_leaves(params)[0].device)
+        fresh = tree_map(lambda x: topo.shard_aggregate(
+            x, mesh, event, worker_index=widx, weight=w), pre_params)
+        d2 = sum((a - f).to(torch.float32).square().sum()
+                 for a, f in zip(tree_leaves(params), tree_leaves(fresh)))
+        world = mesh.world
+        return world.psum(d2) / world.size
+
     def _metric_means(self, per_step):
         """The sim's means over the gathered rows of every worker: one
         all-gather a round, then the mean of each contiguous (n,) row."""
@@ -564,7 +609,6 @@ class MeshExecutor(Executor):
     # -- the sync of one event, for this rank's row ---------------------------
     def _apply_event(self, params, opt_state, cstate, event: SyncEvent,
                      mask=None, drop: bool = False):
-        assert not drop, "drop rounds are refused by _build_round (A7d)"
         plan, mesh, widx = self.plan, self.mesh, self.widx
         topo = plan.topology
         wire = None
@@ -582,9 +626,7 @@ class MeshExecutor(Executor):
                 out = topo.aggregate(self.gather(tree), event, mask=mask)
                 return tree_map(lambda x: x[widx:widx + 1], out)
         else:
-            w = topo._event_weights(event, mask,
-                                    tree_leaves(params)[0].device)
-            w = None if w is None else w[widx]
+            w = self._row_weight(event, mask, tree_leaves(params)[0].device)
             reduce_fn = lambda tree: tree_map(
                 lambda x: topo.shard_aggregate(
                     x, mesh, event, worker_index=widx, weight=w), tree)
@@ -597,6 +639,14 @@ class MeshExecutor(Executor):
                 new_p, new_o, new_c = params, opt_state, cstate
             if mask is not None and cstate is not None:
                 new_c = _keep_rows(self._own_mask(mask), new_c, cstate)
+        if drop:
+            # elastic drop: a dropped row keeps its post-update params, opt
+            # state and unconsumed residual
+            keep = self._own_mask(mask)
+            new_p = _keep_rows(keep, new_p, params)
+            new_o = _keep_rows(keep, new_o, opt_state)
+            if cstate is not None:
+                new_c = _keep_rows(keep, new_c, cstate)
         return new_p, new_o, new_c
 
 

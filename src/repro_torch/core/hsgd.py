@@ -16,17 +16,17 @@ State layout: every worker owns a full model replica; ``params``,
 ``HSGDState.step`` is a Python int (PyTorch runs eagerly, so reading it
 costs no device sync).
 
-Ported here: the barrier engine with comms and error feedback, on the sim
-and mesh executors; on the sim executor also the simulated runtime
-(``EngineConfig.runtime``: per-worker straggler clocks, per-level link
-costs, elastic deadline drops as masked rounds), async stale-sync
-execution (``EngineConfig.async_levels``: posted snapshots folded as
-elementwise deltas), the in-round divergence probes with their metrics
-bus and traces (``EngineConfig.metrics``, :mod:`repro_torch.obs`) and the
-population regime (``EngineConfig.population``: virtual clients sampled
-per round, hydrated into the (k, ...) state and folded back into one
-server model, :meth:`HSGD.run_sampled`).  The mesh executor refuses drop
-rounds, stale folds, metrics plans and populations (ROADMAP A7d).
+Ported here, on the sim and mesh executors alike: the barrier engine with
+comms and error feedback, the simulated runtime (``EngineConfig.runtime``:
+per-worker straggler clocks, per-level link costs, elastic deadline drops
+as masked rounds), async stale-sync execution
+(``EngineConfig.async_levels``: posted snapshots folded as elementwise
+deltas), the in-round divergence probes with their metrics bus and traces
+(``EngineConfig.metrics``, :mod:`repro_torch.obs`) and the population
+regime (``EngineConfig.population``: virtual clients sampled per round,
+hydrated into the (k, ...) state and folded back into one server model,
+:meth:`HSGD.run_sampled`).  The mesh refuses divergence probes on a
+topology without level structure (grouped), as the reference does.
 """
 from __future__ import annotations
 

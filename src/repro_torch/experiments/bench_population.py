@@ -1,6 +1,6 @@
 """Population-regime benchmark: virtual-client sampling cost against the
 population size (counterpart of the JAX package's
-``benchmarks/bench_population.py``, sim executor only).
+``benchmarks/bench_population.py``).
 
 A sampling round costs O(k) — k = topology.n active slots — however many
 virtual clients stand behind it.  The sweep declares populations of 10^3
@@ -18,13 +18,18 @@ population size:
 
 Also asserted: with ``cells == group_sizes`` (k == population) and
 uniform weights, the sampled loop's server params are bit for bit row 0 of
-the baseline engine's — fold-back IS the level-1 sync.  The reference's
-mesh leg (exact mode bit for bit the sim) is ROADMAP A7d.
+the baseline engine's — fold-back IS the level-1 sync.  ``backend="mesh"``
+(or ``"both"``, the same) adds the reference's mesh leg: the 10^6-client
+point reruns through ``MeshExecutor(exact=True)`` in one
+:func:`~repro_torch.launch.mesh.launch` of eight ``gloo`` ranks (all on
+``device``), and its server params must be bit for bit the sim loop's on
+every rank (its ``state_bytes`` are one rank's row).
 
 Writes ``build/BENCH_population_torch.json`` (the reference's
 ``BENCH_population.json`` is refused as an output name).
 
-    PYTHONPATH=src python -m repro_torch.experiments.bench_population
+    PYTHONPATH=src python -m repro_torch.experiments.bench_population \
+        [--backend sim|mesh|both] [--device cuda|cpu]
 """
 from __future__ import annotations
 
@@ -44,7 +49,7 @@ from repro_torch.experiments.common import sync
 from repro_torch.models import SimpleConfig, SimpleModel
 from repro_torch.obs import SCHEMA_VERSION
 from repro_torch.optim import sgd
-from repro_torch.population import Population
+from repro_torch.population import HierarchicalSampler, Population
 from repro_torch.tree import tree_leaves
 
 GS, PERIODS = (2, 4), (4, 2)     # k = 8 slots, G = 4 steps per round
@@ -63,6 +68,8 @@ SWEEP = {
 }
 OUT = "build/BENCH_population_torch.json"
 REFERENCE_FILE = "BENCH_population.json"
+MESH_WORKERS = K                 # one gloo rank per slot of the mesh leg
+MESH_TIMEOUT = 600.0
 
 
 def make_world():
@@ -113,9 +120,11 @@ def bench_baseline(model, shards, rounds: int, dev: torch.device):
             "state_bytes": state_bytes(st.params, st.opt_state)}, st
 
 
-def bench_population(model, shards, cells, rounds: int, dev: torch.device):
+def bench_population(model, shards, cells, rounds: int, dev: torch.device,
+                     executor=None):
     eng = HSGD(model.loss, sgd(LR), _topology(),
-               EngineConfig(population=Population(cells=cells, seed=SEED)))
+               EngineConfig(population=Population(cells=cells, seed=SEED),
+                            executor=executor))
     popeng = eng.population_engine()
     server = eng.init_server(_generator(), model.init, device=dev)
     hydrated = popeng.hydrate(server)
@@ -159,19 +168,52 @@ def k_equals_population(model, shards, rounds: int,
     return tree_equal(row0, server.params)
 
 
-def run(quick: bool = True, device: DeviceLike = "cuda") -> Dict:
-    """The sweep and both proofs; the report, nothing asserted."""
+def mesh_leg(rank: int, cells, rounds: int, device: str) -> Dict:
+    """One rank of the mesh leg (under :func:`~repro_torch.launch.mesh.
+    launch` with MESH_WORKERS ranks): the sweep point ``cells`` through
+    ``MeshExecutor(exact=True)``.  Returns rank 0's record and server
+    params (on the CPU) and whether every rank's server and draws are the
+    same."""
+    import hashlib
+    import torch.distributed as dist
+    from repro_torch.core import MeshExecutor
+    dev = resolve_device(device)
+    model, shards = make_world()
+    rec, server = bench_population(model, shards, cells, rounds, dev,
+                                   executor=MeshExecutor(exact=True))
+    params = [x.cpu() for x in tree_leaves(server.params)]
+    h = hashlib.sha256()
+    for x in params:
+        h.update(x.numpy().tobytes())
+    draws = HierarchicalSampler(Population(cells=cells, seed=SEED), GS)
+    mine = (h.hexdigest(), [draws.draw(r).client_ids.tolist()
+                            for r in range(2 * rounds)])
+    everyone = [None] * dist.get_world_size()
+    dist.all_gather_object(everyone, mine)
+    return {"record": rec, "params": params,
+            "ranks_agree": all(e == mine for e in everyone)}
+
+
+def run(quick: bool = True, device: DeviceLike = "cuda",
+        backend: str = "sim") -> Dict:
+    """The sweep and both proofs, and with ``backend`` "mesh" or "both"
+    the mesh leg; the report, nothing asserted."""
+    if backend not in ("sim", "mesh", "both"):
+        raise ValueError(f"backend must be 'sim', 'mesh' or 'both', got "
+                         f"{backend!r}")
     dev = resolve_device(device)
     model, shards = make_world()
     rounds = 2 if quick else 8
     base, _ = bench_baseline(model, shards, rounds, dev)
     report = {"schema_version": SCHEMA_VERSION, "k": K,
               "group_sizes": list(GS), "periods": list(PERIODS),
-              "rounds": rounds, "backend": "sim", "device": str(dev),
+              "rounds": rounds, "backend": backend, "device": str(dev),
               "baseline": base, "sweep": {}}
+    servers = {}
     for popsize, cells in SWEEP.items():
         print(f"... population {popsize} (cells {cells})", flush=True)
-        rec, _ = bench_population(model, shards, cells, rounds, dev)
+        rec, servers[popsize] = bench_population(model, shards, cells,
+                                                 rounds, dev)
         rec["overhead_vs_baseline"] = \
             rec["time_per_step_s"] / base["time_per_step_s"]
         report["sweep"][str(popsize)] = rec
@@ -180,16 +222,30 @@ def run(quick: bool = True, device: DeviceLike = "cuda") -> Dict:
         sizes == {base["state_bytes"]} == {BASELINE_STATE_BYTES}
     report["bitwise_k_eq_population"] = k_equals_population(
         model, shards, rounds, dev)
+    if backend != "sim":
+        from repro_torch.launch.mesh import launch
+        popsize = max(SWEEP)
+        leg = launch(mesh_leg, MESH_WORKERS, backend="gloo", device=dev.type,
+                     args=(SWEEP[popsize], rounds, dev.type),
+                     timeout=MESH_TIMEOUT)
+        sim = [x.cpu() for x in tree_leaves(servers[popsize].params)]
+        report["mesh"] = dict(
+            leg["record"], backend="mesh(exact)", ranks=MESH_WORKERS,
+            population=popsize, ranks_agree=leg["ranks_agree"],
+            sim_time_per_step_s=report["sweep"][str(popsize)][
+                "time_per_step_s"],
+            params_bitwise_vs_sim=len(sim) == len(leg["params"]) and all(
+                torch.equal(a, b) for a, b in zip(sim, leg["params"])))
     return report
 
 
 def main(quick: bool = True, out: str = OUT,
-         device: DeviceLike = "cuda") -> Dict:
-    """Run, assert both deterministic proofs and write ``out``."""
+         device: DeviceLike = "cuda", backend: str = "sim") -> Dict:
+    """Run, assert the deterministic proofs and write ``out``."""
     if os.path.basename(out) == REFERENCE_FILE:
         raise ValueError(f"{REFERENCE_FILE} is the JAX package's record; "
                          f"write the port's elsewhere (default {OUT})")
-    report = run(quick, device)
+    report = run(quick, device, backend)
     # proof 1: peak state memory is bounded by k — identical across a
     # 1000x population sweep, and exactly the baseline's
     assert report["state_bytes_equal"], (
@@ -199,6 +255,12 @@ def main(quick: bool = True, out: str = OUT,
     # materialized engine (fold-back IS the level-1 sync)
     assert report["bitwise_k_eq_population"], \
         "k == population sampled loop diverged from the materialized engine"
+    if "mesh" in report:
+        # proof 3: the exact mesh runs the sampled loop bit for bit the sim
+        # (same draws on every rank, the same fold)
+        assert report["mesh"]["params_bitwise_vs_sim"] \
+            and report["mesh"]["ranks_agree"], \
+            "mesh(exact) sampled loop diverged from sim"
     parent = os.path.dirname(out)
     if parent:
         os.makedirs(parent, exist_ok=True)
@@ -215,5 +277,8 @@ if __name__ == "__main__":
     ap.add_argument("--full", action="store_true", help="longer runs")
     ap.add_argument("--out", default=OUT)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--backend", default="sim",
+                    choices=["sim", "mesh", "both"])
     args = ap.parse_args()
-    main(quick=not args.full, out=args.out, device=args.device)
+    main(quick=not args.full, out=args.out, device=args.device,
+         backend=args.backend)

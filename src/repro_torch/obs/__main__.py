@@ -15,8 +15,9 @@ viewer.
     PYTHONPATH=src python -m repro_torch.obs --levels 2 --device cpu
 
 It runs on ``cuda`` unless ``--device cpu`` is given, and refuses a
-missing card.  The mesh executor's probes are ROADMAP A7d, so the run is
-on the sim executor.
+missing card.  The run is on the sim executor; the mesh executor's probe
+(``Metrics.mesh_row_fn``) needs one process per worker
+(``repro_torch.launch.mesh.launch``).
 """
 from __future__ import annotations
 

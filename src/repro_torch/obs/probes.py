@@ -16,10 +16,14 @@ body:
   nothing back to the host; ``run_rounds`` drains it with ONE
   device-to-host copy at eval boundaries, before the ring would wrap and
   at the end, and gives each row its (step, level) back from the schedule;
-* :meth:`Metrics.sim_row_fn` evaluates the eq. (10) partition
+* the probe has two lowerings, one per executor:
+  :meth:`Metrics.sim_row_fn` evaluates the eq. (10) partition
   (:func:`repro_torch.core.divergence.partition_divergences_tree`) on the
-  in-array worker block of the sim executor.  The mesh lowering
-  (``mesh_row_fn``) is ROADMAP A7d.
+  in-array worker block of the sim executor; :meth:`Metrics.mesh_row_fn`
+  is the collective form on the mesh executor — per-level group means
+  plus one final stacked mean, L+2 collectives per sync for L internal
+  levels, every value the same on every rank.  They agree to float32
+  summation order.
 
 The probe measures PARAM divergences on the pre-aggregation worker params
 (the states already resident when the sync fires).
@@ -148,12 +152,45 @@ class Metrics:
 
         return row
 
-    def mesh_row_fn(self, topology, rep_axes=None):
-        """The named-axis probe of the mesh executor is ROADMAP A7d."""
-        raise NotImplementedError(
-            "the mesh executor's divergence probe is not ported yet "
-            "(ROADMAP A7d): run probes on the sim executor, or disable "
-            "divergence probing (Metrics(divergences=False))")
+    def mesh_row_fn(self, topology, mesh) -> Callable[[Any], torch.Tensor]:
+        """Collective probe for the mesh executor (uniform hierarchies:
+        the level-ℓ subtree mean is the mean over the mesh axes of levels
+        > ℓ; ``mesh`` is the executor's
+        :class:`~repro_torch.launch.mesh.HSGDMesh`).  Per sync: one world
+        mean, one mean per internal level, and one world mean of the
+        stacked squared norms — L+2 collectives, every output the same on
+        every rank.  Grouped topologies have no per-level axis structure;
+        probe them on the simulator."""
+        if getattr(topology, "spec", None) is None:
+            raise NotImplementedError(
+                f"{type(topology).__name__} has no named-axis level "
+                "structure for the divergence probe; run it on the "
+                "simulator (HSGD(..., executor='sim')) or disable "
+                "divergence probing (Metrics(divergences=False))")
+        levels = self.levels(topology)
+        names = mesh.axis_names
+        assert len(names) == len(levels) + 1, (names, levels)
+        world = mesh.world
+        groups = [mesh.axes(names[lvl:]) for lvl in levels]
+
+        def pmean(axes, t):
+            return axes.psum(t) / axes.size
+
+        def row(params) -> torch.Tensor:
+            # this rank's whole replica as one flat f32 vector
+            x = torch.cat([l.reshape(-1).to(torch.float32)
+                           for l in tree_leaves(params)])
+            xbar = pmean(world, x)
+            parts = [(x - xbar).square().sum()]
+            for axes in groups:
+                # level-ℓ subtree mean: ranks sharing the coordinates above
+                gm = pmean(axes, x)
+                parts += [(gm - xbar).square().sum(),
+                          (x - gm).square().sum()]
+            # worker means of every squared norm in one stacked collective
+            return pmean(world, torch.stack(parts))
+
+        return row
 
     # -- the overhead contract ----------------------------------------------
     def op_budget(self, backend: str, topology, n_param_leaves: int) -> int:

@@ -25,8 +25,12 @@ A *sampling round* is one global period G of the bound topology:
    :func:`~repro_torch.core.aggregators.denominator_floor`, never NaN).
 
 Peak state memory is bounded by k: the population exists only as the
-sampler's arithmetic and the (sparsely grown) participation ledger.  The
-mesh executor refuses a population at bind (ROADMAP A7d).
+sampler's arithmetic and the (sparsely grown) participation ledger.  On
+the mesh executor the inner engine runs one slot per rank (a twin of the
+outer executor, on the same mesh); the draws are host numpy, the same on
+every rank, and the fold-back first gathers the (k, ...) slots to every
+rank, which then folds them in the sim's reduction order: the server
+model is the same on every rank, and in exact mode the sim's bit for bit.
 """
 from __future__ import annotations
 
@@ -210,12 +214,15 @@ class PopulationEngine:
         — the zero-denominator guard's host-side twin."""
         if weights is not None and not np.any(weights > 0):
             return server
-        dev = tree_leaves(state.params)[0].device
+        # the (k, ...) slots on this process: all of them under the sim, and
+        # every rank's gathered under the mesh
+        gather = self.inner.executor.gather
+        params, opt_state = gather(state.params), gather(state.opt_state)
+        dev = tree_leaves(params)[0].device
         w = None if weights is None else \
             torch.as_tensor(weights, dtype=torch.float32, device=dev)
         new_params, new_opt = self._fold_fn(self.fold_mode, w is not None)(
-            server.params, server.opt_state, state.params, state.opt_state,
-            w)
+            server.params, server.opt_state, params, opt_state, w)
         return dataclasses.replace(server, params=new_params,
                                    opt_state=new_opt)
 

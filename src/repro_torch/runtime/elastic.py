@@ -21,9 +21,9 @@ participation contract (``admit`` -> (n,) bool): the clock hands the mask
 to the engine, which aggregates over admitted workers only while dropped
 workers keep their exact post-update params AND their unconsumed comms
 residuals (they transmitted nothing, they received nothing — they were
-still computing when the barrier closed).  The sim executor honors it
-(``SimExecutor._build_round(..., masked=True)``); the mesh executor
-refuses masked rounds until ROADMAP A7d.
+still computing when the barrier closed).  Both executors honor it
+(``Executor._build_round(..., masked=True)``; the mesh applies the drop to
+each rank's own row).
 """
 from __future__ import annotations
 

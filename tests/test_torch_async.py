@@ -16,7 +16,9 @@ fold is the hand oracle ``live + (agg - params)``, a run split at a
 posting boundary resumes exactly, a codec's stale residual chain stays
 apart from the live one, and a worker dropped at a stale boundary keeps
 its params, opt state and pending rows.  Refusals: ``step`` on an async
-engine, invalid ``async_levels``, and the mesh executor (ROADMAP A7d).
+engine and invalid ``async_levels``.  In a one-process ``gloo`` group the
+mesh executor runs an async engine and a drop round bit for bit as the
+sim (the eight-rank lowering is ``tests/test_torch_mesh_runtime.py``).
 """
 import numpy as np
 import pytest
@@ -386,26 +388,59 @@ def test_async_levels_validation_matches_reference(al, match):
 
 
 def test_mesh_refuses_async_and_drop_rounds_naming_a7d(tmp_path):
-    """In a one-process ``gloo`` group: an engine with async levels is
-    refused at bind and a masked round at ``round_fn``, both naming A7d;
-    a runtime that drops nobody runs on the mesh with its clock."""
+    """In a one-process ``gloo`` group, where the mesh refused async
+    levels at bind and masked rounds at ``round_fn`` until it had their
+    lowering: an async engine now runs on the mesh bit for bit as the
+    sim's n = 1 run (params, opt state and pending slots), a masked round
+    drops its one worker as the sim does, and a runtime that drops nobody
+    runs with its clock."""
     import torch.distributed as dist
     dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
                             world_size=1, rank=0)
     try:
         pm = SimpleModel(SimpleConfig(**MODEL))
         topo = lambda: P.make_topology("local_sgd", n=1, P=4)
-        with pytest.raises(NotImplementedError, match="A7d"):
-            P.HSGD(pm.loss, PO.sgd(0.05), topo(), P.EngineConfig(
-                executor="mesh", async_levels={1: 1}))
+        batch = lambda t: {k: v[:1] for k, v in _batch_p(t).items()}
+
+        def run(executor):
+            eng = P.HSGD(pm.loss, PO.momentum(0.05), topo(), P.EngineConfig(
+                executor=executor, async_levels={1: 1},
+                comms=PC.Comms("topk", rate=0.25)))
+            st = eng.init(torch.Generator().manual_seed(0), pm.init,
+                          device="cpu")
+            st, hist = eng.run_rounds(st, batch, 16)
+            sched = eng.topology.schedule(20)
+            rnd = P.compile_schedule(
+                sched[16:], t0=16, async_levels={1: 1},
+                warm0=P.async_warmup(sched[:16], {1: 1}))[0]
+            assert rnd.stale and rnd.stale[-1].n_fold == 1
+            bs = tuple({k: torch.as_tensor(v) for k, v in batch(16 + i)
+                        .items()} for i in range(rnd.n_local))
+            dropped, _ = eng.round_fn(rnd, masked=True)(
+                st, bs, torch.tensor([False]))
+            return st, hist, dropped
+
+        mesh, sim = run("mesh"), run(None)
+        assert [r["ce"] for r in mesh[1]] == [r["ce"] for r in sim[1]]
+        for a, b in zip(mesh[0::2], sim[0::2]):
+            assert _equal(a.params, b.params)
+            assert _equal(a.opt_state, b.opt_state)
+            assert _equal(a.comms, b.comms)
+            for slot_a, slot_b in zip(a.pending.values(),
+                                      b.pending.values()):
+                assert _equal(slot_a.residual, slot_b.residual)
+                assert all(_equal(getattr(x, f), getattr(y, f))
+                           for x, y in zip(slot_a.snaps, slot_b.snaps)
+                           for f in ("params", "opt", "agg", "agg_opt"))
+        # the dropped worker keeps its post-update state and its slots
+        st, _, dropped = mesh
+        assert _equal(dropped.pending[1].snaps[0].params,
+                      st.pending[1].snaps[0].params)
         eng = P.HSGD(pm.loss, PO.sgd(0.05), topo(), P.EngineConfig(
             executor="mesh", runtime=PR.RuntimeModel(compute_s=1.0)))
-        with pytest.raises(NotImplementedError, match="A7d"):
-            eng.round_fn(P.Round(4, P.SyncEvent(level=1)), masked=True)
         st = eng.init(torch.Generator().manual_seed(0), pm.init,
                       device="cpu")
-        st, hist = eng.run_rounds(st, lambda t: {
-            k: v[:1] for k, v in _batch_p(t).items()}, 8)
+        st, hist = eng.run_rounds(st, batch, 8)
         assert [r["sim_time_s"] for r in hist][-1] > 8.0
         assert eng.runtime_report()["dropped"] == {1: 0}
     finally:

@@ -323,6 +323,28 @@ def test_bench_runtime_regime_matches_reference(tname, rname):
          ["elastic_beats_full_barrier", "async_beats_elastic"]))
 
 
+def test_bench_runtime_mesh_leg_is_the_sim():
+    """``matrix(backend="mesh")`` cut to two_level / bursty on the CPU:
+    the elastic and async arms rerun on the exact mesh (eight gloo ranks)
+    with every simulated field equal to the sim arms' (the twin asserts
+    clocks, drops, evals and ce itself); the whole matrix runs on the card
+    in ``chip_smoke.py``."""
+    report = PBR.matrix(True, "cpu", topologies=["two_level"],
+                        regimes=["bursty"], backend="mesh")
+    row = report["topologies"]["two_level"]["bursty"]
+    assert report["backend"] == "mesh"
+    for arm in ("elastic", "async"):
+        mesh, sim = dict(row[f"{arm}_mesh"]), row[arm]
+        assert mesh.pop("backend") == "mesh(exact)"
+        assert mesh.pop("max_abs_ce_diff_vs_sim") < 1e-5
+        assert mesh.pop("steps_per_s") > 0 and mesh.pop("sim_steps_per_s") > 0
+        assert mesh.pop("ranks") == 8
+        sim = {k: v for k, v in sim.items() if k != "async_levels"}
+        assert mesh == sim, arm
+    with pytest.raises(ValueError, match="backend"):
+        PBR.matrix(True, "cpu", backend="tpu")
+
+
 def test_bench_runtime_main_raises_on_the_false_claim(tmp_path,
                                                      monkeypatch):
     """``main`` writes its report where asked (never over the reference's
@@ -330,9 +352,10 @@ def test_bench_runtime_main_raises_on_the_false_claim(tmp_path,
     regime with the false claim here; the whole matrix runs on the CPU and
     the card in ``chip_smoke.py``."""
     matrix = PBR.matrix
-    monkeypatch.setattr(PBR, "matrix", lambda quick, device, init: matrix(
-        quick, device, init, topologies=["three_level"],
-        regimes=["bursty"]))
+    monkeypatch.setattr(PBR, "matrix", lambda quick, device, init, **kw:
+                        matrix(quick, device, init,
+                               topologies=["three_level"],
+                               regimes=["bursty"], **kw))
     out = tmp_path / "BENCH_runtime_torch.json"
     with pytest.raises(AssertionError,
                        match="three_level/bursty/async_beats_elastic"):

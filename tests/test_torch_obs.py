@@ -10,9 +10,12 @@ the params the reference's ``model.init`` draws and see the same numpy
 batches (the reference's tiny world of ``tests/test_obs.py``): every
 ``div_*`` value agrees within DIV_RTOL = 1e-5 of the largest channel of its
 row, ``grad_norm`` and ``ce`` within RTOL = 1e-5 relative, and every record
-carries the same keys.  Inside the port: probes change no param bit, the
-staleness channel reads 0 except at stale folds, and the mesh executor
-refuses a metrics plan naming A7d.
+carries the same keys.  Inside the port: probes change no param bit and
+the staleness channel reads 0 except at stale folds.  In a one-process
+``gloo`` group the mesh executor runs a metrics plan bit for bit as the
+sim and refuses divergence probes on a grouped topology, as the
+reference does (the eight-rank probe is
+``tests/test_torch_mesh_runtime.py``).
 """
 import numpy as np
 import pytest
@@ -211,8 +214,15 @@ def test_make_metrics_and_layout_equal_reference():
                 for leaves in (2, 4, 6):
                     assert pm.op_budget(backend, pt, leaves) == \
                         jm.op_budget(backend, jt, leaves)
-    with pytest.raises(NotImplementedError, match="A7d"):
-        PO.Metrics().mesh_row_fn(topos[0][1])
+    # the mesh probe's one refusal, the reference's: no level structure
+    msgs = []
+    for metrics, topo, mesh in ((PO.Metrics(), topos[3][1], None),
+                                (JO.Metrics(), topos[3][0], ("data",))):
+        with pytest.raises(NotImplementedError,
+                           match="no named-axis level structure") as e:
+            metrics.mesh_row_fn(topo, mesh)
+        msgs.append(str(e.value))
+    assert msgs[0] == msgs[1]
 
 
 @pytest.mark.parametrize("spec", ["two_level", "three_level", "grouped"])
@@ -375,18 +385,40 @@ def test_twins_refuse_the_reference_file_names():
 
 
 def test_mesh_refuses_metrics_naming_a7d(tmp_path):
-    """In a one-process ``gloo`` group: any metrics plan is refused at
-    bind, naming A7d; metrics None binds."""
+    """In a one-process ``gloo`` group, where the mesh refused every
+    metrics plan until it had the probe's lowering: the default plan and
+    ``grad_norm`` alone now run on the mesh bit for bit as the sim's
+    n = 1 run, records and probe rows alike; the one refusal left is the
+    reference's, divergence probes on a topology without level
+    structure, at bind."""
     import torch.distributed as dist
     dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
                             world_size=1, rank=0)
     try:
         pm = SimpleModel(SimpleConfig(**MODEL))
         topo = lambda: P.make_topology("local_sgd", n=1, P=4)
+        batch = lambda t: {k: v[:1] for k, v in _pb(t).items()}
         for metrics in ("on", PO.Metrics(divergences=False)):
-            with pytest.raises(NotImplementedError, match="A7d"):
-                P.HSGD(pm.loss, sgd(0.1), topo(), P.EngineConfig(
-                    executor="mesh", metrics=metrics))
-        P.HSGD(pm.loss, sgd(0.1), topo(), P.EngineConfig(executor="mesh"))
+            runs = []
+            for executor in ("mesh", None):
+                eng = P.HSGD(pm.loss, sgd(0.1), topo(), P.EngineConfig(
+                    executor=executor, metrics=metrics))
+                st = eng.init(torch.Generator().manual_seed(0), pm.init,
+                              device="cpu")
+                st, hist = eng.run_rounds(st, batch, 8)
+                runs.append((st, hist))
+            (ms, mh), (ss, sh) = runs
+            assert mh == sh and all("grad_norm" in r for r in mh)
+            assert ("div_global" in mh[3]) == (metrics == "on")
+            assert all(torch.equal(a, b) for a, b in zip(
+                tree_leaves(ms.params), tree_leaves(ss.params)))
+        with pytest.raises(NotImplementedError,
+                           match="no named-axis level structure"):
+            P.HSGD(pm.loss, sgd(0.1), P.GroupedTopology(
+                P.contiguous(1, 1), G=4, I=2), P.EngineConfig(
+                    executor="mesh", metrics="on"))
+        P.HSGD(pm.loss, sgd(0.1), P.GroupedTopology(
+            P.contiguous(1, 1), G=4, I=2), P.EngineConfig(
+                executor="mesh", metrics=PO.Metrics(divergences=False)))
     finally:
         dist.destroy_process_group()

@@ -12,8 +12,9 @@ and the ``participation`` channel and ``wire_bytes`` exactly.  Inside the
 port: with k == population the sampled loop is bit for bit row 0 of the
 materialized engine (sgd and adam), the weighted and nonzero folds match
 a float64 host oracle, and a 10^6-client population keeps the state
-bounded by k.  Refusals: the mesh executor (ROADMAP A7d) and the audits
-(ROADMAP A11).
+bounded by k.  Refusals: the audits (ROADMAP A11).  In a one-process
+``gloo`` group the sampled loop runs on the mesh bit for bit as on the sim
+(the eight-rank exact population is ``tests/test_torch_mesh_runtime.py``).
 """
 import dataclasses
 
@@ -339,16 +340,45 @@ def test_population_refusals():
 
 
 def test_mesh_refuses_population_naming_a7d(tmp_path):
+    """In a one-process ``gloo`` group, where the mesh refused a
+    population at bind until it had the fold-back's gather: the sampled
+    loop now runs on the mesh bit for bit as the sim's (k = 1)."""
     import torch.distributed as dist
     dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
                             world_size=1, rank=0)
     try:
         pm = SimpleModel(SimpleConfig(**MODEL))
-        with pytest.raises(NotImplementedError, match="A7d"):
-            P.HSGD(pm.loss, sgd(0.1), P.make_topology("local_sgd", n=1, P=4),
-                   P.EngineConfig(executor="mesh", population=(4,)))
+        runs = []
+        for executor in ("mesh", None):
+            eng = P.HSGD(pm.loss, sgd(0.1),
+                         P.make_topology("local_sgd", n=1, P=4),
+                         P.EngineConfig(executor=executor, population=(4,)))
+            server, hist = eng.run_sampled(_server(eng), _pb, 2)
+            runs.append((server, hist))
+        (ms, mh), (ss, sh) = runs
+        assert mh == sh and ms.round == 2
+        for a, b in zip(tree_leaves(ms.params), tree_leaves(ss.params)):
+            assert torch.equal(a, b)
+        assert not all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(ms.params), tree_leaves(_server(eng).params)))
     finally:
         dist.destroy_process_group()
+
+
+def test_bench_population_mesh_leg_is_the_sim():
+    """The twin's mesh leg on the CPU (eight gloo ranks, quick): the
+    10^6-client point's server bit for bit the sim loop's on every rank,
+    with the draws the same on every rank."""
+    from repro_torch.experiments import bench_population as bp
+    report = bp.run(quick=True, device="cpu", backend="mesh")
+    mesh = report["mesh"]
+    assert mesh["params_bitwise_vs_sim"] and mesh["ranks_agree"]
+    assert mesh["population"] == 10**6 and mesh["unique_clients"] == \
+        report["sweep"][str(10**6)]["unique_clients"]
+    # one rank holds one slot's row of the k = 8 hydrated state
+    assert mesh["state_bytes"] * 8 == bp.BASELINE_STATE_BYTES
+    with pytest.raises(ValueError, match="backend"):
+        bp.run(quick=True, device="cpu", backend="tpu")
 
 
 def test_metrics_plan_reaches_the_inner_engine():
