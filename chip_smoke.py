@@ -220,14 +220,39 @@ or of the JAX package.  It
    under top-k, one round's nonzero fold-back of the same slots on the
    card within POP_TOPK_RTOL of the CPU's, and whole runs within
    LOSS_RTOL in server loss, with the params' gap printed;
-14. writes the records below, with the card's line, to
+14. train phase: H-SGD training of the LMs through
+   ``repro_torch.launch.train.main``.  (a) qwen2-0.5b at full width
+   (TRAIN_ARGV: 4 replicas in 2 groups, G=4, I=2, batch 4 x seq 256 a
+   worker, int8 wire, 8 steps) with checkpoints every TRAIN_CKPT_EVERY
+   steps under ``torch.use_deterministic_algorithms``: every loss finite,
+   ``int8_scale_quantize`` launched once per sync and int8 bucket, the
+   plain versions' run and a run resumed from the step-4 file (in a
+   directory holding only it) bit for bit the kernels' run (step-8
+   checkpoint and losses), an op without a deterministic CUDA version a
+   failure; steps/s and tok/s over TRAIN_SPEED_STEPS steps with the
+   default algorithms and no checkpoints (host clock, a ``synchronize``
+   at the window's two ends only, the first round left out), peak GB,
+   checkpoint GB and write and read GB/s printed.  (b) the same flags
+   with ``--reduced`` on the card and the CPU for int8, sign, a runtime
+   with a lognormal straggler and a deadline, probes and a population:
+   losses and ``div_*`` within TRAIN_REDUCED_RTOL, the step-8
+   checkpoints' params within TRAIN_REDUCED_ATOL (sign: its card-CPU gap
+   printed, its kernels' run bit for bit its plain versions' run on the
+   card), wire, clock, drop and participation fields equal,
+   ``sign_pack`` launched once per sync.  (c) ``--backend
+   mesh --comms topk`` at reduced size on TRAIN_MESH_WORKERS gloo ranks:
+   ``topk_decode_reduce`` once per sync on every rank, records within
+   MESH_ATOL of the sim's.  (d) ``launch.serve --ckpt-dir`` on a params
+   checkpoint written on the card: greedy tokens equal to the same params'
+   in memory;
+15. writes the records below, with the card's line, to
    ``chiprun_out/chip_smoke.json``, then prints one ``{"ssm": ...}`` JSON
    line with the SSM throughputs, one
    ``{"topk_sim": ..., "mesh": ...}`` line, one ``{"experiments": ...}``
    line, one ``{"runtime": ...}`` line, one ``{"obs": ...}`` line, one
-   ``{"population": ...}`` line, one ``{"kernels": [...]}`` JSON line (all
-   nine kernels), then the result line ``{"ok": true, "device": {...}}``
-   last.
+   ``{"population": ...}`` line, one ``{"train": ...}`` line, one
+   ``{"kernels": [...]}`` JSON line (all nine kernels), then the result
+   line ``{"ok": true, "device": {...}}`` last.
 
 Any failed phase exits non-zero before the result line.
 
@@ -243,6 +268,7 @@ time, then one JSON line.
 import contextlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -446,6 +472,45 @@ OBS_HOST_REPS = 3
 # ~1e-3 at once, PERF.md §6, PR 22)
 POP_CELLS, POP_ROUNDS = (10, 100), 8
 POP_TOPK_RTOL = 1e-5
+# train phase: H-SGD training of the LMs through repro_torch.launch.train.
+# (a) qwen2-0.5b at full width (configs/qwen2_0_5b.py: 494,032,768
+# params, bf16), 4 replicas, checkpoints every TRAIN_CKPT_EVERY steps,
+# under torch.use_deterministic_algorithms (CUBLAS_WORKSPACE_CONFIG is set
+# in main() before CUDA starts): the kernels' run, the plain versions' run
+# and a resume from the step-4 file must agree bit for bit, and an op of
+# the path without a deterministic CUDA version (it warns) fails the
+# phase.  Then the speed: TRAIN_SPEED_STEPS steps with the default
+# algorithms and no checkpoints, the host clock read after a synchronize
+# at the window's two ends only.  (b) the same flags with --reduced (f32)
+# on the card and the CPU for each of TRAIN_REDUCED: losses and div_*
+# within TRAIN_REDUCED_RTOL relative (PERF.md §6: sound runs read 7.6e-8
+# to 1.5e-7, card and CPU started from other params 5e-4 to 7e-4), the
+# step-8 checkpoints' params within TRAIN_REDUCED_ATOL, the wire, clock,
+# drop and participation fields equal.  Sign's params are held by its
+# kernels' run on the card against its plain versions' run there, bit for
+# bit (a sign flip between card and CPU moves a param by a whole step);
+# their card-CPU gap is printed.  Population mode takes no --ckpt-dir: its
+# losses and fields only.  (c) --backend mesh --comms topk at reduced size
+# on TRAIN_MESH_WORKERS gloo ranks, within MESH_ATOL of the sim.  (d)
+# launch.serve --ckpt-dir on a params checkpoint written on the card.  The
+# phase should add under TRAIN_BUDGET_S (printed, not asserted)
+TRAIN_ARGV = ("--arch", "qwen2-0.5b", "--workers", "4", "--groups", "2",
+              "--G", "4", "--I", "2", "--steps", "8", "--batch", "4",
+              "--seq", "256", "--comms", "int8", "--log-every", "1")
+TRAIN_CKPT_EVERY = 4
+TRAIN_SPEED_STEPS = 24
+TRAIN_PARAMS = 494_032_768
+TRAIN_REDUCED_RTOL, TRAIN_REDUCED_ATOL = 1e-5, 1e-5
+TRAIN_REDUCED = (
+    ("int8", ()),
+    ("sign", ("--comms", "sign")),
+    ("runtime", ("--runtime", "0.004,0.005:1e9,0.0003:1e10",
+                 "--straggler", "lognormal:0.8", "--deadline", "0.004")),
+    ("probes", ("--probes",)),
+    ("population", ("--population", "10x10", "--sample-k", "4")),
+)
+TRAIN_MESH_WORKERS = 4
+TRAIN_BUDGET_S = 180.0
 TPU_KERNEL = "src/repro/kernels/comms.py"
 SOURCE = "src/repro_torch/kernels/csrc/{}.cu"
 
@@ -3028,6 +3093,439 @@ def population_phase(torch, kern, ref):
     return rec
 
 
+def _train(argv, device: str):
+    """``repro_torch.launch.train.main(argv, device)`` with its standard
+    output captured: (history, {"header", "wire", "runtime", "other"})."""
+    import io
+    from repro_torch.launch import train
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        history = train.main(list(argv), device=device)
+    lines = {"other": []}
+    for line in buf.getvalue().splitlines():
+        rec = json.loads(line) if line.startswith("{") else None
+        if rec is None:
+            lines["other"].append(line)
+        elif "schema_version" in rec:
+            lines["header"] = rec
+        elif "wire" in rec:
+            lines["wire"] = rec["wire"]
+        elif "runtime" in rec:
+            lines["runtime"] = rec
+        elif "step" not in rec:
+            lines["other"].append(rec)
+    return history, lines
+
+
+def _train_syncs(spec, t0: int, t1: int) -> int:
+    """Sync events of the hierarchy ``spec`` in steps t0..t1-1."""
+    return sum(spec.sync_level(t) is not None for t in range(t0, t1))
+
+
+@contextlib.contextmanager
+def _deterministic(torch, label: str):
+    """``torch.use_deterministic_algorithms`` for the block; fails naming
+    every op that warned it has no deterministic CUDA version."""
+    import warnings
+    det = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield
+    finally:
+        torch.use_deterministic_algorithms(det[0], warn_only=det[1])
+    nondet = sorted({str(w.message).splitlines()[0] for w in caught
+                     if "deterministic" in str(w.message)})
+    check(not nondet, f"{label}: ops without a deterministic CUDA version: "
+          f"{nondet}")
+
+
+def _same_file(a: Path, b: Path) -> bool:
+    if a.stat().st_size != b.stat().st_size:
+        return False
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        while True:
+            x, y = fa.read(1 << 26), fb.read(1 << 26)
+            if x != y:
+                return False
+            if not x:
+                return True
+
+
+def _ckpt_gap(a: Path, b: Path) -> float:
+    """Largest |difference| between two small checkpoints' leaves."""
+    import torch
+    from repro_torch.checkpoint import _msgpack
+
+    def leaves(path):
+        with open(path, "rb") as f:
+            payload = _msgpack.read(f)["payload"]
+        for r in payload:
+            bf16 = r["dtype"] == "bfloat16"
+            x = torch.frombuffer(r["data"], dtype=torch.int16 if bf16
+                                 else getattr(torch, r["wire"])) \
+                if len(r["data"]) else torch.zeros(0)
+            yield (x.view(torch.bfloat16) if bf16 else x).double()
+    xs, ys = list(leaves(a)), list(leaves(b))
+    check(len(xs) == len(ys) and all(x.shape == y.shape
+                                     for x, y in zip(xs, ys)),
+          f"{a} and {b} hold different trees")
+    return max((float((x - y).abs().max()) for x, y in zip(xs, ys)
+                if x.numel()), default=0.0)
+
+
+def train_mesh_rank(rank: int, argv):
+    """One rank of the train phase's mesh run: launch.train in this rank,
+    its kernel launches counted; rank 0 returns its history and every
+    rank's counts."""
+    import io
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import comms as kern
+    from repro_torch.launch import train
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kern.reset_launch_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        history = train.main(list(argv), device="cuda")
+    counts = dict(kern.launch_counts)
+    everyone = [None] * dist.get_world_size()
+    dist.all_gather_object(everyone, counts)
+    return {"history": history, "launches": everyone}
+
+
+def train_phase(torch, kern, ref):
+    """H-SGD training of the LMs through ``repro_torch.launch.train`` on
+    the card, (a) to (d) as set out at TRAIN_ARGV.  Returns the record."""
+    import gc
+    import shutil
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import launch
+    t_phase = time.perf_counter()
+    root = ROOT / "build" / "train_phase"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    rec = {"card": card_line()}
+    args = train.build_argparser().parse_args(TRAIN_ARGV)
+    spec = train.make_spec(args)
+    tokens = spec.n_workers * args.batch * args.seq   # a step, all workers
+    marks, timing = [], {"save_s": [], "restore_s": []}
+    orig = {k: getattr(train, k) for k in ("save", "restore", "make_stream")}
+
+    def timed_save(path, step, tree):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig["save"](path, step, tree)
+        timing["save_s"].append(time.perf_counter() - t0)
+        return out
+
+    def timed_restore(*a, **kw):
+        t0 = time.perf_counter()
+        out = orig["restore"](*a, **kw)
+        torch.cuda.synchronize()
+        timing["restore_s"].append(time.perf_counter() - t0)
+        return out
+
+    def marked_stream(args_, vocab, n, device):
+        stream = orig["make_stream"](args_, vocab, n, device)
+
+        def batch(t):
+            # the timed window opens at the second round's batch: the
+            # first round (I steps) is out; no other batch waits
+            if not marks or t == marks[0][0] + args.I:
+                torch.cuda.synchronize()
+                marks.append((t, time.perf_counter()))
+            return stream(t)
+        return batch
+
+    def full(label, extra=(), plain=False):
+        kern.reset_launch_counts()
+        marks.clear()
+        timing["save_s"].clear()
+        timing["restore_s"].clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with plain_versions(kern, ref) if plain else contextlib.nullcontext():
+            hist, lines = _train(list(TRAIN_ARGV) + list(extra), "cuda")
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+        # steps/s: first round and checkpoint writes excluded
+        (first, _), (_, t_from) = marks
+        steps = hist[-1]["step"] - first - args.I
+        sps = steps / (t_end - t_from - sum(timing["save_s"]))
+        run = {"history": hist, "lines": lines,
+               "launches": dict(kern.launch_counts),
+               "seconds": t_end - t0, "steps": steps, "steps_per_s": sps,
+               "tok_per_s": sps * tokens,
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "save_s": list(timing["save_s"]),
+               "restore_s": list(timing["restore_s"])}
+        losses = [r["loss"] for r in hist]
+        print(f"train (a) {label}: losses {losses}, {run['seconds']:.1f} s, "
+              f"{sps!r} steps/s, {run['tok_per_s']!r} tok/s over {steps} "
+              f"steps (first round and checkpoint writes excluded), peak "
+              f"{run['peak_gb']:.3f} GB, checkpoint writes "
+              f"{run['save_s']} s, reads {run['restore_s']} s, launches "
+              f"{run['launches']}", flush=True)
+        check(all(math.isfinite(x) for x in losses),
+              f"train (a) {label}: a loss is not finite: {losses}")
+        return run
+
+    for k, fn in (("save", timed_save), ("restore", timed_restore),
+                  ("make_stream", marked_stream)):
+        setattr(train, k, fn)
+    try:
+        # (a) full width, deterministic algorithms for this part only
+        a_dir, b_dir, c_dir = root / "a", root / "b", root / "c"
+        ckpt = lambda d: ("--ckpt-dir", str(d),
+                          "--ckpt-every", str(TRAIN_CKPT_EVERY))
+        with _deterministic(torch, "train (a)"):
+            kernel = full("kernels", ckpt(a_dir))
+            plain = full("plain versions", ckpt(b_dir), plain=True)
+            (b_dir / "ckpt_00000004.msgpack").unlink()
+            c_dir.mkdir()
+            os.replace(a_dir / "ckpt_00000004.msgpack",
+                       c_dir / "ckpt_00000004.msgpack")
+            resumed = full("resumed from step 4", ckpt(c_dir))
+        a8 = a_dir / "ckpt_00000008.msgpack"
+        ckpt_bytes = a8.stat().st_size
+        payload = kernel["lines"]["wire"]["payload"]
+        buckets = sum(a["name"].endswith(".q") for a in payload)
+        predicted = {
+            "kernels": _train_syncs(spec, 0, args.steps) * buckets,
+            "resumed from step 4":
+                _train_syncs(spec, TRAIN_CKPT_EVERY, args.steps) * buckets}
+        for label, run in (("kernels", kernel),
+                           ("resumed from step 4", resumed)):
+            got = run["launches"]["int8_scale_quantize"]
+            check(got == predicted[label],
+                  f"train (a) {label}: {got} int8_scale_quantize launches, "
+                  f"predicted {predicted[label]} (one per sync and int8 "
+                  f"bucket, {buckets} bucket(s))")
+        check(not any(plain["launches"].values()),
+              f"train (a): the plain versions' run launched "
+              f"{plain['launches']}")
+        check(f"resumed from step {TRAIN_CKPT_EVERY}"
+              in resumed["lines"]["other"],
+              "train (a): the resumed run did not resume from step 4")
+        check(resumed["history"][0]["step"] == TRAIN_CKPT_EVERY + 1,
+              f"train (a): the resumed run's first record is "
+              f"{resumed['history'][0]}")
+        same_plain = _same_file(a8, b_dir / "ckpt_00000008.msgpack")
+        same_resume = _same_file(a8, c_dir / "ckpt_00000008.msgpack")
+        loss_plain = [r["loss"] for r in plain["history"]]
+        loss_kernel = [r["loss"] for r in kernel["history"]]
+        loss_resume = [r["loss"] for r in resumed["history"]]
+        check(same_plain and loss_plain == loss_kernel,
+              "train (a): the kernels' run differs from the plain "
+              "versions' run (step-8 checkpoint or losses)")
+        check(same_resume and loss_resume == loss_kernel[TRAIN_CKPT_EVERY:],
+              "train (a): the run resumed from step 4 differs from "
+              "the uninterrupted run (step-8 checkpoint or losses)")
+        save_s = kernel["save_s"] + plain["save_s"] + resumed["save_s"]
+        rec["full"] = {
+            "argv": list(TRAIN_ARGV), "params": TRAIN_PARAMS,
+            "losses": loss_kernel,
+            "deterministic_steps_per_s": kernel["steps_per_s"],
+            "plain_steps_per_s": plain["steps_per_s"],
+            "peak_gb": kernel["peak_gb"], "plain_peak_gb": plain["peak_gb"],
+            "resumed_peak_gb": resumed["peak_gb"],
+            "ckpt_gb": ckpt_bytes / 1e9, "save_s": save_s,
+            "write_gb_per_s": [ckpt_bytes / 1e9 / t for t in save_s],
+            "restore_s": resumed["restore_s"],
+            "read_gb_per_s": [ckpt_bytes / 1e9 / t
+                              for t in resumed["restore_s"]],
+            "launches": {"kernels": kernel["launches"],
+                         "resumed": resumed["launches"]},
+            "predicted_int8_launches": predicted,
+            "wire_payloads_per_sync": {
+                lvl: v["payloads_per_sync"] for lvl, v in
+                kernel["lines"]["wire"]["per_level"].items()},
+            "bitwise_plain": same_plain, "bitwise_resume": same_resume,
+            "seconds": kernel["seconds"] + plain["seconds"]
+            + resumed["seconds"]}
+        print(f"train (a): qwen2-0.5b full width, {TRAIN_PARAMS} params, "
+              f"checkpoint {ckpt_bytes / 1e9:.3f} GB, write "
+              f"{[round(x, 3) for x in rec['full']['write_gb_per_s']]} GB/s, "
+              f"read {[round(x, 3) for x in rec['full']['read_gb_per_s']]} "
+              f"GB/s; kernels vs plain versions bit for bit {same_plain}, "
+              f"resume bit for bit {same_resume}; int8_scale_quantize "
+              f"launches {predicted} as predicted; {card_line()}",
+              flush=True)
+        shutil.rmtree(a_dir)
+        shutil.rmtree(b_dir)
+        shutil.rmtree(c_dir)
+        del kernel, plain, resumed
+        # the speed: default (nondeterministic) algorithms, no checkpoints,
+        # a longer window
+        fast = full("kernels, default algorithms, no checkpoints",
+                    ("--steps", str(TRAIN_SPEED_STEPS)))
+        rec["full"].update({
+            "steps_per_s": fast["steps_per_s"],
+            "tok_per_s": fast["tok_per_s"], "speed_steps": fast["steps"],
+            "speed_peak_gb": fast["peak_gb"]})
+        del fast
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        for k, fn in orig.items():
+            setattr(train, k, fn)
+
+    # (b) reduced, card against CPU; the card's runs under deterministic
+    # algorithms, so that sign's kernels and plain versions agree bit for
+    # bit
+    rec["reduced"], rec["launches"] = {}, {"int8_scale_quantize": {
+        "train full width (kernels)": rec["full"]["launches"]["kernels"][
+            "int8_scale_quantize"],
+        "train full width (resumed)": rec["full"]["launches"]["resumed"][
+            "int8_scale_quantize"]}, "sign_pack": {}}
+    step8 = f"ckpt_{args.steps:08d}.msgpack"
+    for label, extra in TRAIN_REDUCED:
+        argv = list(TRAIN_ARGV) + ["--reduced"] + list(extra)
+        # population mode takes no --ckpt-dir
+        dirs = {} if label == "population" else {
+            d: root / f"{label}_{d}" for d in ("card", "host", "plain")}
+
+        def with_ckpt(d):
+            return argv + ([] if not dirs else [
+                "--ckpt-dir", str(dirs[d]), "--ckpt-every", str(args.steps)])
+        kern.reset_launch_counts()
+        t0 = time.perf_counter()
+        with _deterministic(torch, f"train (b) {label}"):
+            gpu, gpu_lines = _train(with_ckpt("card"), "cuda")
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = dict(kern.launch_counts)
+            if label == "sign":
+                with plain_versions(kern, ref):
+                    plain, _ = _train(with_ckpt("plain"), "cuda")
+                check(dict(kern.launch_counts) == counts,
+                      "train (b) sign: the plain versions' run launched a "
+                      "kernel")
+        cpu, cpu_lines = _train(with_ckpt("host"), "cpu")
+        check([r["step"] for r in gpu] == [r["step"] for r in cpu],
+              f"train (b) {label}: records of other steps on card and CPU")
+        rel = max(abs(g["loss"] - c["loss"]) / abs(c["loss"])
+                  for g, c in zip(gpu, cpu))
+        for g, c in zip(gpu, cpu):
+            for key in ("wire_cum_bytes", "wire_bytes", "sim_time_s",
+                        "sim_sync_s", "dropped", "participation", "lvl"):
+                check(g.get(key) == c.get(key),
+                      f"train (b) {label}: {key} {g.get(key)} on the card, "
+                      f"{c.get(key)} on the CPU at step {g['step']}")
+            check(math.isfinite(g["loss"]),
+                  f"train (b) {label}: loss not finite: {g}")
+        # div_* against the largest of the record's divergences
+        divs = [abs(g[k] - c[k]) / max(max(abs(c[j]) for j in c
+                                           if j.startswith("div_")), 1e-30)
+                for g, c in zip(gpu, cpu) for k in c if k.startswith("div_")]
+        check(rel <= TRAIN_REDUCED_RTOL
+              and all(d <= TRAIN_REDUCED_RTOL for d in divs),
+              f"train (b) {label}: card vs CPU loss {rel} or div_* "
+              f"{max(divs, default=0.0)} relative > {TRAIN_REDUCED_RTOL}")
+        check(gpu_lines.get("wire") == cpu_lines.get("wire")
+              and gpu_lines.get("runtime") == cpu_lines.get("runtime"),
+              f"train (b) {label}: the wire or runtime line differs")
+        gap = _ckpt_gap(dirs["card"] / step8, dirs["host"] / step8) \
+            if dirs else None
+        if dirs and label != "sign":
+            check(gap <= TRAIN_REDUCED_ATOL,
+                  f"train (b) {label}: card vs CPU step-{args.steps} params "
+                  f"differ by {gap} > {TRAIN_REDUCED_ATOL}")
+        bitwise = None
+        if label == "sign":
+            bitwise = ([r["loss"] for r in plain] == [r["loss"] for r in gpu]
+                       and _same_file(dirs["card"] / step8,
+                                      dirs["plain"] / step8))
+            check(bitwise, "train (b) sign: the kernels' run on the card "
+                  "differs from the plain versions' run there (losses or "
+                  f"step-{args.steps} checkpoint)")
+        codec = "sign_pack" if label == "sign" else "int8_scale_quantize"
+        check(counts[codec] > 0,
+              f"train (b) {label}: {codec} was never launched")
+        if label == "sign":
+            want = _train_syncs(spec, 0, args.steps)
+            check(counts[codec] == want,
+                  f"train (b) sign: {counts[codec]} sign_pack launches, "
+                  f"predicted {want}")
+        rec["launches"][codec][f"train reduced {label}"] = counts[codec]
+        rec["reduced"][label] = {
+            "loss_rel": rel, "div_rel": max(divs, default=None),
+            "params_gap": gap, "bitwise_plain": bitwise,
+            "losses": [r["loss"] for r in gpu], "seconds": secs,
+            "launches": counts,
+            "dropped": sum(r.get("dropped", 0) for r in gpu)}
+        print(f"train (b) {label}: card vs CPU loss relative {rel!r}, div_* "
+              f"{max(divs, default=None)!r}, step-{args.steps} params gap "
+              f"{gap!r}, kernels vs plain versions on the card bit for bit "
+              f"{bitwise}, wire/clock/drop fields equal, {secs:.2f} s on the "
+              f"card, launches {counts}", flush=True)
+    check(rec["reduced"]["runtime"]["dropped"] > 0,
+          "train (b) runtime: the deadline dropped no worker")
+
+    # (c) mesh: topk on TRAIN_MESH_WORKERS gloo ranks against the sim
+    argv = list(TRAIN_ARGV) + ["--reduced", "--comms", "topk"]
+    sim, _ = _train(argv, "cuda")
+    t0 = time.perf_counter()
+    res = launch(train_mesh_rank, TRAIN_MESH_WORKERS, backend="gloo",
+                 device="cuda", args=(argv + ["--backend", "mesh"],),
+                 timeout=MESH_TIMEOUT)
+    wall = time.perf_counter() - t0
+    mesh = res["history"]
+    per_rank = [c["topk_decode_reduce"] for c in res["launches"]]
+    rel = max(abs(m["loss"] - s["loss"]) / abs(s["loss"])
+              for m, s in zip(mesh, sim))
+    print(f"train (c) mesh topk, {TRAIN_MESH_WORKERS} gloo ranks: launch "
+          f"and run {wall:.1f} s, topk_decode_reduce per rank {per_rank}, "
+          f"loss vs the sim relative {rel!r}", flush=True)
+    want = _train_syncs(spec, 0, args.steps)
+    check(per_rank == [want] * TRAIN_MESH_WORKERS,
+          f"train (c): topk_decode_reduce launches per rank {per_rank}, "
+          f"predicted {want} each")
+    check([m["step"] for m in mesh] == [s["step"] for s in sim]
+          and all(m["wire_cum_bytes"] == s["wire_cum_bytes"]
+                  for m, s in zip(mesh, sim)) and rel <= MESH_ATOL,
+          f"train (c): the mesh's records differ from the sim's (loss "
+          f"relative {rel} > {MESH_ATOL}, or steps or wire bytes)")
+    rec["mesh"] = {"wall_s": wall, "topk_per_rank": per_rank,
+                   "loss_rel": rel}
+
+    # (d) serving from a checkpoint written on the card
+    from repro_torch.checkpoint import save
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    from repro_torch.serving import DecodeEngine
+    model = build_model(get_config("qwen2-0.5b"))
+    p1 = model.init(torch.Generator(device="cuda").manual_seed(1),
+                    device="cuda")
+    save(str(root / "serve"), 0, {"params": p1})
+    with contextlib.redirect_stdout(sys.stderr):
+        res = serve.main(["--arch", "qwen2-0.5b", "--batch", "2",
+                          "--prompt-len", "16", "--gen", "8", "--ckpt-dir",
+                          str(root / "serve")], device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model.init(gen, device="cuda")
+    prompt = torch.randint(0, model.cfg.vocab_size, (2, 16), generator=gen,
+                           device="cuda")
+    want = DecodeEngine(model, p1, device="cuda").generate(prompt, 8)
+    same = torch.equal(torch.as_tensor(res.tokens).cpu(),
+                       torch.as_tensor(want.tokens).cpu())
+    print(f"train (d) serve --ckpt-dir: greedy tokens equal to the "
+          f"in-memory params' {same}", flush=True)
+    check(same, "train (d): serve --ckpt-dir gives other tokens than the "
+          "same params in memory")
+    shutil.rmtree(root)
+    rec["wall_s"] = time.perf_counter() - t_phase
+    print(f"train phase: {rec['wall_s']:.1f} s (budget {TRAIN_BUDGET_S} s)",
+          flush=True)
+    return rec
+
+
 def profile_phase(torch, kattn):
     """The serving profile (``--profile``); returns its numbers."""
     import dataclasses
@@ -3093,6 +3591,9 @@ def profile_phase(torch, kattn):
 
 
 def main() -> int:
+    # the train phase's deterministic algorithms need cuBLAS's fixed
+    # workspaces, which cuBLAS reads when CUDA starts
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test "
@@ -3168,7 +3669,8 @@ def main() -> int:
         runtime = runtime_phase(torch, kern, ref)
         obs = obs_phase(torch, kern, ref)
         population = population_phase(torch, kern, ref)
-        for phase in (mesh, runtime, obs, population):
+        trained = train_phase(torch, kern, ref)
+        for phase in (mesh, runtime, obs, population, trained):
             for name, by_run in phase["launches"].items():
                 launches[name].update(by_run)
     except SmokeFailure as e:
@@ -3203,11 +3705,14 @@ def main() -> int:
                       rec["launches_per_rank"]["topk_decode_reduce"][0]
                       for label, rec in mesh["a7d"]["runs"].items()
                       if "topk_decode_reduce" in rec["launches_per_rank"]})
+    train_topk = {f"train mesh topk (each of {TRAIN_MESH_WORKERS} ranks)":
+                  trained["mesh"]["topk_per_rank"][0]}
     kernels.append({
         "name": "topk_decode_reduce", "route": "cuda",
         "source": SOURCE.format("topk_reduce"), "replaces": TOPK_TPU_KERNEL,
-        "launches": MESH_WORKERS * sum(topk_runs.values()),
-        "launches_by_run": topk_runs,
+        "launches": MESH_WORKERS * sum(topk_runs.values())
+        + sum(trained["mesh"]["topk_per_rank"]),
+        "launches_by_run": {**topk_runs, **train_topk},
         "max_abs_err": topk["max_abs_err"],
         "max_abs_err_repeated": topk["max_abs_err_repeated"],
         "ms": topk["ms"], "plain_ms": topk["plain_ms"],
@@ -3270,6 +3775,7 @@ def main() -> int:
         {"obs": {k: v for k, v in obs.items() if k != "launches"}},
         {"population": {k: v for k, v in population.items()
                         if k != "launches"}},
+        {"train": {k: v for k, v in trained.items() if k != "launches"}},
         {"kernels": kernels}]
     # the whole record also in a file: the lines outgrow a terminal's tail
     out_dir = ROOT / "chiprun_out"

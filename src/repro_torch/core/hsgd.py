@@ -66,6 +66,19 @@ class EngineConfig:
     # are dropped at construction, so {1: 0} is the barrier path bit for bit
     async_levels: Any = None
 
+    def describe(self) -> Dict[str, Any]:
+        """JSON-able summary (``launch.train``'s JSONL ``config`` line):
+        the reference's, less ``jit``."""
+        def show(v):
+            if v is None or isinstance(v, (str, int, float, bool)):
+                return v
+            if isinstance(v, dict):
+                return {str(k): show(x) for k, x in v.items()}
+            d = getattr(v, "describe", None)
+            return d() if callable(d) else repr(v)
+        return {f.name: show(getattr(self, f.name))
+                for f in dataclasses.fields(self)}
+
 
 @dataclasses.dataclass
 class HSGDState:
@@ -374,12 +387,14 @@ class HSGD:
             if grad_norm:
                 # per-worker gradient l2 norm; executors mean it over the
                 # worker axis like every other per-step metric.  One
-                # concatenation and one norm, so that the channel costs two
-                # launches a step whatever the leaf count
+                # concatenation and one sum of squares, so that the channel
+                # costs four launches a step whatever the leaf count.  Not
+                # torch.linalg.vector_norm: on the CPU it lies 2e-5 from
+                # float64 on an LM's gradients (torch.sum sums in cascade)
                 metrics = dict(metrics)
-                metrics["grad_norm"] = torch.linalg.vector_norm(torch.cat(
-                    [g.reshape(-1).to(torch.float32)
-                     for g in tree_leaves(grads)]))
+                flat = torch.cat([g.reshape(-1).to(torch.float32)
+                                  for g in tree_leaves(grads)])
+                metrics["grad_norm"] = torch.sqrt(torch.sum(flat * flat))
             updates, opt_state = self.optimizer.update(grads, opt_state,
                                                        params)
             params = tree_map(torch.add, params, updates)

@@ -9,7 +9,9 @@ It runs on the CUDA card.  The kernels (flash attention, the SSD and
 RG-LRU scans) run only where the config sets ``use_kernels`` (a config
 field that the caller sets, as ``use_pallas`` is in the reference); this
 launcher keeps the registry's default, the plain path.  Its default
-architecture is the reference's, mamba2-130m.
+architecture is the reference's, mamba2-130m.  ``--ckpt-dir`` restores
+the params from the latest checkpoint there onto the model's template, as
+the reference does.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import time
 
 import torch
 
+from repro_torch.checkpoint import restore
 from repro_torch.configs import get_config, reduced
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import build_model
@@ -37,15 +40,12 @@ def main(argv=None, device: DeviceLike = "cuda"):
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--ckpt-dir", default="",
-                    help="not ported yet (ROADMAP A10): the reference's "
-                         "checkpoints need msgpack")
+                    help="restore {\"params\": ...} from the latest "
+                         "checkpoint there (repro_torch.checkpoint; the "
+                         "reference's files too)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
-    if args.ckpt_dir:
-        raise NotImplementedError(
-            "--ckpt-dir: checkpoint restore is not ported yet (ROADMAP A10); "
-            "the reference's format needs msgpack")
     dev = resolve_device(device)
     cfg = get_config(args.arch)
     if args.reduced:
@@ -53,6 +53,9 @@ def main(argv=None, device: DeviceLike = "cuda"):
     model = build_model(cfg)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = model.init(gen, device=dev)
+    if args.ckpt_dir:
+        _, tree = restore(args.ckpt_dir, {"params": params})
+        params = tree["params"]
 
     eng = DecodeEngine(model, params, temperature=args.temperature,
                        device=dev)

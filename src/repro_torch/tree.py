@@ -1,9 +1,12 @@
-"""Minimal pytree helpers over nested dicts of tensors.
+"""Minimal pytree helpers over nested dicts, tuples and lists of tensors.
 
-Leaf order is ``jax.tree.flatten``'s: dict keys in SORTED order.  The
+Leaf order is ``jax.tree.flatten``'s: dict keys in SORTED order, tuple and
+list children in index order, and ``None`` a node with no leaves.  The
 order matters beyond style: the comms buckets concatenate leaves in it,
-and the int8 block scales depend on which elements share a block (see
-:mod:`repro_torch.comms.flat`).
+the int8 block scales depend on which elements share a block (see
+:mod:`repro_torch.comms.flat`), and a checkpoint stores leaves in it (see
+:mod:`repro_torch.checkpoint`).  An LM's params hold their blocks in
+tuples of dicts (``models/transformer.py``), so tuples must be nodes.
 """
 from __future__ import annotations
 
@@ -12,9 +15,26 @@ from typing import Any, Callable, List, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
+class _Seq:
+    """Structure of a tuple or list node: its type and its children's
+    structures in index order."""
+    kind: type
+    children: Tuple[Any, ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class _NoneNode:
+    """Structure of a ``None`` node (no leaves, as in ``jax.tree``)."""
+
+
+_NONE = _NoneNode()
+
+
+@dataclasses.dataclass(frozen=True)
 class TreeDef:
-    """Hashable structure of a tree: None for a leaf, else a tuple of
-    (key, child structure) pairs in sorted key order."""
+    """Hashable structure of a tree: None for a leaf, a tuple of (key,
+    child structure) pairs in sorted key order for a dict, a ``_Seq`` for
+    a tuple or list and ``_NONE`` for ``None``."""
     spec: Any
 
     def unflatten(self, leaves):
@@ -34,6 +54,10 @@ class TreeDef:
 def _spec(t, leaves: List[Any]):
     if isinstance(t, dict):
         return tuple((k, _spec(t[k], leaves)) for k in sorted(t))
+    if isinstance(t, (tuple, list)):
+        return _Seq(type(t), tuple(_spec(c, leaves) for c in t))
+    if t is None:
+        return _NONE
     leaves.append(t)
     return None
 
@@ -41,6 +65,10 @@ def _spec(t, leaves: List[Any]):
 def _build(spec, it):
     if spec is None:
         return next(it)
+    if spec is _NONE:
+        return None
+    if isinstance(spec, _Seq):
+        return spec.kind(_build(s, it) for s in spec.children)
     return {k: _build(s, it) for k, s in spec}
 
 

@@ -42,6 +42,16 @@ def test_port_files_import_no_jax_and_no_reference():
     assert not bad, bad
 
 
+def test_port_files_import_no_msgpack():
+    """The card's machine has no msgpack: the checkpoints' codec is the
+    port's own (``repro_torch/checkpoint/_msgpack.py``)."""
+    bad = [(str(p.relative_to(ROOT)), m) for p in _port_files()
+           for m in _imported_modules(p) if m.split(".")[0] == "msgpack"]
+    assert not bad, bad
+    mods = set(_imported_modules(PORT / "checkpoint" / "ckpt.py"))
+    assert "repro_torch.checkpoint" in mods
+
+
 def test_the_scan_sees_imports():
     """Guard the guard: the scan must find the port's own imports."""
     mods = set(_imported_modules(PORT / "core" / "hsgd.py"))
@@ -67,12 +77,15 @@ def test_importing_the_port_loads_no_jax():
             "import repro_torch.population.engine\n"
             "import repro_torch.experiments.bench_obs\n"
             "import repro_torch.experiments.bench_population\n"
+            "import repro_torch.checkpoint, repro_torch.launch.train\n"
+            "import repro_torch.data.synthetic\n"
             "from repro_torch.experiments import (fig3_sandwich,\n"
             "    table2_time_to_acc, fig3c_grouping, fig_e4_participation,\n"
             "    fig_e8_multilevel, table1_bounds, plan_deployment)\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
-            "assert not bad, bad\n")
+            "assert not bad, bad\n"
+            "assert 'msgpack' not in sys.modules\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
@@ -144,6 +157,7 @@ def test_entry_points_refuse_missing_cuda(no_cuda):
 def test_lm_entry_points_refuse_missing_cuda(no_cuda):
     from repro_torch.configs import get_config, reduced
     from repro_torch.launch.serve import main
+    from repro_torch.launch.train import main as train_main
     from repro_torch.models import build_model, params_from_numpy
     from repro_torch.models import params_to_numpy
     from repro_torch.serving import DecodeEngine
@@ -158,6 +172,10 @@ def test_lm_entry_points_refuse_missing_cuda(no_cuda):
         lambda: DecodeEngine(model, params),
         lambda: model.init_cache(2, 8),
         lambda: main(["--arch", "qwen2-0.5b", "--reduced"]),
+        lambda: train_main(["--arch", "qwen2-0.5b", "--reduced",
+                            "--steps", "2"]),
+        lambda: train_main(["--arch", "qwen2-0.5b", "--reduced",
+                            "--steps", "2", "--backend", "mesh"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="cuda"):

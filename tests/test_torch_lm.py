@@ -304,7 +304,9 @@ def test_serve_launcher_on_cpu(capsys):
                 "--prompt-len", "10", "--gen", "5"], device="cpu")
     assert res.tokens.shape == (2, 5) and np.isfinite(res.logprobs).all()
     assert "tok/s" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="A10"):
+    # --ckpt-dir restores (tests/test_torch_checkpoint.py); a directory
+    # without a checkpoint fails as the reference's restore does
+    with pytest.raises(AssertionError, match="no checkpoints"):
         main(["--arch", "qwen2-0.5b", "--reduced", "--ckpt-dir", "x"],
              device="cpu")
     res = main(["--reduced", "--batch", "2", "--gen", "3"],
