@@ -153,6 +153,23 @@ or of the JAX package.  It
    recurrentgemma-2b) and no SSM kernel, as the reference's prefill runs
    no SSM kernel.  Float32 tokens must equal the plain versions' run's,
    bfloat16 scores agree to SCORE_ATOL; prints prefill and decode tokens/s;
+9a. MoE and encoder-decoder phase: at full width with
+   ``use_kernels=True``, random weights from seed 0, olmoe-1b-7b (64
+   experts top-8; float32 and bfloat16) and seamless-m4t-large-v2 (24 +
+   24 layers, MOE_PROMPT // 4 stub audio frames a request; float32 and
+   bfloat16) served through ``DecodeEngine.generate`` (MOE_BATCH prompts
+   of MOE_PROMPT tokens, MOE_GEN greedy tokens) and scored by ``loss``
+   (MOE_BATCH x MOE_PROMPT tokens, the median of LOSS_REPS calls after a
+   warm-up), and mixtral-8x22b cut to MIXTRAL_LAYERS layers (float32, one
+   prompt of MIXTRAL_PROMPT tokens, MIXTRAL_GEN tokens): one
+   ``flash_attention`` launch per causal self-attention layer in every
+   prefill and ``loss`` (16, 2 with the 4,096 window, 24; none in decode,
+   the encoder or the cross-attention).  Against the plain versions on the
+   card: float32 tokens equal, prefill logits within PREFILL_RTOL of the
+   largest, CE within CE_RTOL, on the sequences without a router flip
+   (each run's flips counted and printed); bfloat16 CE within
+   CE_ATOL_BF16; olmoe's ``moe_dispatch="gather"`` loss within
+   GATHER_RTOL of the einsum path's; tokens/s and peak GB printed;
 10. experiments phase: the paper's claims on the card, each main of
    ``repro_torch.experiments`` with its reference's asserts unchanged:
    fig3_sandwich and table2_time_to_acc at the reference's full setting
@@ -247,7 +264,7 @@ or of the JAX package.  It
    in memory;
 15. writes the records below, with the card's line, to
    ``chiprun_out/chip_smoke.json``, then prints one ``{"ssm": ...}`` JSON
-   line with the SSM throughputs, one
+   line with the SSM throughputs, one ``{"moe_encdec": ...}`` line, one
    ``{"topk_sim": ..., "mesh": ...}`` line, one ``{"experiments": ...}``
    line, one ``{"runtime": ...}`` line, one ``{"obs": ...}`` line, one
    ``{"population": ...}`` line, one ``{"train": ...}`` line, one
@@ -294,11 +311,15 @@ F32_SPLIT_OPS_PER_D = 24
 F32_SPLIT_BYTES = 10
 BF16_OPS_PER_S = 989e12      # H100 SXM bf16 tensor cores, dense
 # flash attention cases: (B, Sq, Sk, Hq, Hk, D, dtype, causal, window);
-# (a), (b) and (c), the first three, are timed
+# (a), (b), (c) and (d), the first ATTN_TIMED, are timed
 ATTN_CASES = (
     (8, 1024, 1024, 14, 2, 64, "bfloat16", True, None),    # (a) qwen2 prefill
     (1, 2048, 2048, 16, 8, 256, "bfloat16", True, 1024),   # (b) gemma3 local
     (8, 1024, 1024, 10, 1, 256, "bfloat16", True, 2048),   # (c) recurrentgemma
+    (8, 1024, 1024, 16, 16, 128, "bfloat16", True, None),  # (d) olmoe prefill
+    # mixtral-8x22b's heads (48 over 8) and a window shorter than S
+    (1, 1100, 1100, 48, 8, 128, "bfloat16", True, 700),
+    (1, 1100, 1100, 48, 8, 128, "float32", True, 700),
     *((2, 300, 300, 4, 2, d, "float32", True, None)
       for d in (32, 64, 96, 128, 192, 256)),
     *((2, 300, 300, 4, 2, d, "bfloat16", True, None) for d in (32, 192)),
@@ -333,6 +354,7 @@ ATTN_ROWS = (-3.0, 0.5)
 # sums, likely truncating), attention_ref 2.3-21.2, float32 SDPA 5.6-12.1,
 # the control 306-1007.
 ATTN_F32_ULPS = 128
+ATTN_TIMED = 4
 ATTN_TPU_KERNEL = "src/repro/kernels/flash_attention.py:76"
 # the serving phase: qwen2-0.5b at full width
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 1024, 32
@@ -511,6 +533,26 @@ TRAIN_REDUCED = (
 )
 TRAIN_MESH_WORKERS = 4
 TRAIN_BUDGET_S = 180.0
+# the MoE and encoder-decoder phase, at full width: olmoe-1b-7b (f32 and
+# bf16: MOE_BATCH prompts of MOE_PROMPT tokens, MOE_GEN greedy tokens, and
+# loss on MOE_BATCH x MOE_PROMPT tokens; 4 MoE groups of 2048 tokens a
+# layer, capacity 320 a group, which drops tokens), mixtral-8x22b cut to
+# MIXTRAL_LAYERS of its 56 layers (f32, one prompt of MIXTRAL_PROMPT
+# tokens: 3 groups, and its 4,096-token window shorter than the prompt)
+# and seamless-m4t-large-v2 (f32 and bf16, prompt_len // 4 stub frames a
+# request).  Held against the plain versions on the card: f32 greedy
+# tokens equal, prefill logits within PREFILL_RTOL of the largest, CE
+# within CE_RTOL; bf16 CE within CE_ATOL_BF16.  A token whose router
+# probabilities tie within rounding picks another expert set under the
+# kernel than under the plain version; such flips are counted and
+# printed, and the f32 checks hold the sequences without one (a flip in
+# a prefill group marks the whole group: capacity couples its tokens).
+# moe_dispatch="gather" once in f32: loss within GATHER_RTOL of the einsum
+# path's.  The phase should take under MOE_ENCDEC_BUDGET_S (printed)
+MOE_BATCH, MOE_PROMPT, MOE_GEN = 8, 1024, 32
+MIXTRAL_LAYERS, MIXTRAL_PROMPT, MIXTRAL_GEN = 2, 6144, 8
+GATHER_RTOL = 1e-5
+MOE_ENCDEC_BUDGET_S = 150.0
 TPU_KERNEL = "src/repro/kernels/comms.py"
 SOURCE = "src/repro_torch/kernels/csrc/{}.cu"
 
@@ -1879,12 +1921,12 @@ def attention_kernel_phase(torch, kattn, ref):
         if dtype == "float32":
             rec["max_abs_err_f32"] = max(rec["max_abs_err_f32"], err)
             against_f64(q, k, v, at, {"kernel": out, "plain": want})
-        if i < 3:
+        if i < ATTN_TIMED:
             rec["timed"].append(
                 attention_timing(torch, kattn, ref, q, k, v, want, at)[0])
         del q, k, v, out, want
         torch.cuda.empty_cache()
-        if i < 3:
+        if i < ATTN_TIMED:
             at32 = at[:6] + ("float32",) + at[7:]
             q, k, v = attention_inputs(torch, gen_f32, at32)
             want = ref.attention_ref(q, k, v, causal=causal, window=window)
@@ -1920,21 +1962,27 @@ def recording_windows(kattn):
         kattn.flash_attention = real
 
 
-def serve(torch, counters, cfg, batch, prompt_len, gen_len, seed=0):
+def serve(torch, counters, cfg, batch, prompt_len, gen_len, seed=0,
+          frames=0, record=contextlib.nullcontext):
     """``cfg`` at random weights through ``DecodeEngine.generate`` on the
     card, the launches of every wrapper module in ``counters`` counted from
-    zero; returns the model, params, engine, prompt, result, the launches
-    and the prefill/decode seconds."""
+    zero; an encoder-decoder gets ``frames`` stub frames a request, drawn
+    after the prompt.  The counted run is made inside ``record()``.
+    Returns the model, params, engine, prompt, frames (or None), result,
+    what ``record()`` yielded, the launches, the prefill's last logits and
+    the prefill/decode seconds."""
     from repro_torch.models import build_model
+    from repro_torch.models.frontends import synth_audio_frames
     from repro_torch.serving import DecodeEngine
     model = build_model(cfg)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     params = model.init(gen, device="cuda")
     prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
                            generator=gen, device="cuda")
+    enc = synth_audio_frames(gen, cfg, batch, frames) if frames else None
     engine = DecodeEngine(model, params, device="cuda")
-    engine.generate(prompt[:, :64], 2)         # warm-up, not counted
-    prefill_s = []
+    engine.generate(prompt[:, :64], 2, enc_inputs=enc)   # warm-up
+    prefill_s, logits = [], []
     real_prefill = model.prefill
 
     def timed_prefill(*args, **kw):
@@ -1943,21 +1991,24 @@ def serve(torch, counters, cfg, batch, prompt_len, gen_len, seed=0):
         out = real_prefill(*args, **kw)
         torch.cuda.synchronize()
         prefill_s.append(time.perf_counter() - t0)
+        logits.append(out[0])
         return out
 
     model.prefill = timed_prefill
     torch.cuda.synchronize()
     for counter in counters:
         counter.reset_launch_counts()
-    t0 = time.perf_counter()
-    res = engine.generate(prompt, gen_len)
-    torch.cuda.synchronize()
-    total = time.perf_counter() - t0
+    with record() as seen:
+        t0 = time.perf_counter()
+        res = engine.generate(prompt, gen_len, enc_inputs=enc)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
     launches = {k: n for counter in counters
                 for k, n in counter.launch_counts.items()}
     model.prefill = real_prefill
     return {"model": model, "params": params, "engine": engine,
-            "prompt": prompt, "res": res, "launches": launches,
+            "prompt": prompt, "frames": enc, "res": res, "seen": seen,
+            "launches": launches, "prefill_logits": logits[0],
             "prefill_s": prefill_s[0], "decode_s": total - prefill_s[0]}
 
 
@@ -2374,6 +2425,301 @@ def ssm_serving_phase(torch, kern, kattn, kssd, krg, ref):
                       f"{label}: scores differ by {d} > {SCORE_ATOL}")
             del run, res, eng, prompt
             torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def recording_routes(layers):
+    """Record the expert set (sorted, on the card) each MoE layer call of
+    ``repro_torch.models.layers`` picks, in call order."""
+    real, seen = layers._route, []
+
+    def route(p, xt, k):
+        out = real(p, xt, k)
+        seen.append(out[2].sort(-1).values)
+        return out
+
+    layers._route = route
+    try:
+        yield seen
+    finally:
+        layers._route = real
+
+
+def route_flips(torch, cfg, ours, plain, batch, seq):
+    """Compare two runs' recorded expert sets call by call: the (token,
+    layer) pairs that picked another set in full-sequence calls (a forward
+    or a prefill, in MoE groups) and in decode steps, and the sequences a
+    flip reaches: a whole group's (capacity couples its tokens) or a
+    decoded sequence's."""
+    check(len(ours) == len(plain) and all(
+        a.shape == b.shape for a, b in zip(ours, plain)),
+          f"{cfg.name}: the two runs made other MoE calls")
+    t = batch * seq
+    grouped = t > cfg.moe_group and t % cfg.moe_group == 0
+    rows = cfg.moe_group if grouped else t
+    groups, full_calls = t // rows, 0
+    out = {"sequence_pairs": 0, "decode_pairs": 0}
+    flipped = set()
+    for a, b in zip(ours, plain):
+        hit = (a != b).any(-1).nonzero().flatten().tolist()
+        if a.shape[0] == rows and rows != batch:
+            g = full_calls % groups
+            full_calls += 1
+            out["sequence_pairs"] += len(hit)
+            if hit:
+                flipped |= set(range(g * rows // seq,
+                                     ((g + 1) * rows - 1) // seq + 1))
+        else:
+            out["decode_pairs"] += len(hit)
+            flipped |= set(hit)
+    out["flipped_sequences"] = sorted(flipped)
+    return out
+
+
+def _held(n, flips):
+    return [i for i in range(n) if i not in set(flips["flipped_sequences"])]
+
+
+def _sequence_ce(torch, logits, targets):
+    """Each sequence's mean token CE, from (B, S, V) logits, a row at a
+    time (the full float32 log-softmax of a 256k vocabulary is 8 GB)."""
+    return torch.stack([
+        -torch.log_softmax(lg.float(), -1).gather(
+            -1, tg.long()[:, None])[:, 0].mean()
+        for lg, tg in zip(logits, targets)])
+
+
+def _moe_encdec_serve(torch, kern, kattn, ref, layers, label, cfg, batch,
+                      prompt_len, gen_len, frames, out):
+    """One model served on the card with the kernels and then with the
+    plain versions; checks as the phase says.  Returns the model, params
+    and its generator-drawn prompt for the loss runs."""
+    want = _layer_launches(cfg)["flash_attention"]
+    torch.cuda.reset_peak_memory_stats()
+    run = serve(torch, (kattn,), cfg, batch, prompt_len, gen_len,
+                frames=frames, record=lambda: recording_routes(layers))
+    res, eng, prompt, enc = run["res"], run["engine"], run["prompt"], \
+        run["frames"]
+    n = run["launches"]["flash_attention"]
+    tp = {"prefill_s": run["prefill_s"], "decode_s": run["decode_s"],
+          "prefill_tok_per_s": batch * prompt_len / run["prefill_s"],
+          "decode_tok_per_s": batch * (gen_len - 1) / run["decode_s"],
+          "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(f"{label} serve: batch {batch}, prompt {prompt_len}, {gen_len} "
+          f"tokens: prefill {tp['prefill_s']:.4f} s "
+          f"({tp['prefill_tok_per_s']:.1f} tok/s), decode "
+          f"{tp['decode_s']:.4f} s ({tp['decode_tok_per_s']:.1f} tok/s), "
+          f"peak {tp['peak_gb']:.3f} GB, flash_attention launches {n}",
+          flush=True)
+    check(n == want, f"{label} serve: flash_attention launched {n} times "
+          f"in one prefill of {want} attention layers")
+    import numpy as np
+    check(np.isfinite(res.logprobs).all(),
+          f"{label} serve: a log-probability is not finite")
+    model, params = run["model"], run["params"]
+    real_prefill, plain_logits = model.prefill, []
+
+    def keep_logits(*args, **kw):
+        got = real_prefill(*args, **kw)
+        plain_logits.append(got[0])
+        return got
+
+    model.prefill = keep_logits
+    with plain_versions(kern, ref, kattn), recording_routes(layers) as seen:
+        kattn.reset_launch_counts()
+        plain = eng.generate(prompt, gen_len, enc_inputs=enc)
+        check(kattn.launch_counts["flash_attention"] == 0,
+              f"{label}: the plain-version run launched the kernel")
+    model.prefill = real_prefill
+    flips = route_flips(torch, cfg, run["seen"], seen, batch, prompt_len)
+    held = _held(batch, flips)
+    logits_k, logits_p = run["prefill_logits"], plain_logits[0]
+    check(bool(torch.isfinite(logits_k).all()),
+          f"{label} serve: prefill logits are not finite")
+    same = (res.tokens == plain.tokens).all(-1)
+    # over every sequence, flipped ones included (recorded, not held)
+    rec = {**tp, "launches": n, "router_flips": flips,
+           "sequences_equal": int(same.sum()),
+           "prefill_logits_max_abs_diff_all": float(
+               (logits_k.float() - logits_p.float()).abs().max())}
+    if held:
+        scale = float(logits_p[held].float().abs().max())
+        diff = float((logits_k[held].float()
+                      - logits_p[held].float()).abs().max())
+        rec.update(prefill_logits_max_abs_diff=diff, max_abs_logit=scale)
+    print(f"{label} serve: router flips {flips}; prefill logits max "
+          f"|kernel - plain| {rec['prefill_logits_max_abs_diff_all']!r} over "
+          f"all sequences; {int(same.sum())} of "
+          f"{batch} sequences' tokens equal to the plain versions'; held "
+          f"{len(held)} of {batch} (left out {batch - len(held)}): prefill "
+          f"logits max |kernel - plain| "
+          f"{rec.get('prefill_logits_max_abs_diff')!r} of max |logit| "
+          f"{rec.get('max_abs_logit')!r}", flush=True)
+    if cfg.dtype == "float32":
+        check(held, f"{label} serve: every sequence flipped a route")
+        check(rec["prefill_logits_max_abs_diff"]
+              <= PREFILL_RTOL * rec["max_abs_logit"],
+              f"{label} serve: prefill logits differ by "
+              f"{rec['prefill_logits_max_abs_diff']} > {PREFILL_RTOL} * "
+              f"{rec['max_abs_logit']}")
+        check(bool(same[held].all()),
+              f"{label} serve: generated tokens differ from the plain "
+              f"versions' in a sequence without a route flip")
+    out["serve"][label] = rec
+    out["launches"][f"{label} serve"] = n
+    del run, res, eng, plain, logits_k, logits_p, plain_logits
+    return model, params
+
+
+def _moe_encdec_loss(torch, kern, kattn, ref, layers, label, model, params,
+                     batch, seq, frames, out):
+    """``loss`` on batch x seq tokens on the card: the median of LOSS_REPS
+    calls after a warm-up, launches counted in the first; against the plain
+    versions (float32: logits and each sequence's CE on the sequences
+    without a route flip; bf16: CE).  Returns the batch and the kernels'
+    CE (the gather path's yardstick)."""
+    from repro_torch.models.frontends import synth_audio_frames
+    cfg = model.cfg
+    want = _layer_launches(cfg)["flash_attention"]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (batch, seq + 1), generator=gen,
+                         device="cuda")
+    b = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    if frames:
+        b["enc_inputs"] = synth_audio_frames(gen, cfg, batch, frames)
+    fwd_args = (b["tokens"],) + ((b["enc_inputs"],) if frames else ())
+    with torch.inference_mode():
+        model.loss(params, b)                        # warm-up, full shape
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kattn.reset_launch_counts()
+        runs = []
+        for rep in range(LOSS_REPS):
+            t0 = time.perf_counter()
+            loss_k, info_k = model.loss(params, b)
+            torch.cuda.synchronize()
+            runs.append(time.perf_counter() - t0)
+            if rep == 0:
+                n = kattn.launch_counts["flash_attention"]
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        with recording_routes(layers) as seen_k:
+            logits_k = model.forward(params, *fwd_args)[0]
+        with plain_versions(kern, ref, kattn):
+            kattn.reset_launch_counts()
+            loss_p, info_p = model.loss(params, b)
+            with recording_routes(layers) as seen_p:
+                logits_p = model.forward(params, *fwd_args)[0]
+            check(kattn.launch_counts["flash_attention"] == 0,
+                  f"{label}: the plain-version run launched the kernel")
+        flips = route_flips(torch, cfg, seen_k, seen_p, batch, seq)
+        held = _held(batch, flips)
+        ce_k = _sequence_ce(torch, logits_k, b["targets"])
+        ce_p = _sequence_ce(torch, logits_p, b["targets"])
+    secs = statistics.median(runs)
+    rec = {"seconds": secs, "runs_s": runs, "tok_per_s": batch * seq / secs,
+           "peak_gb": peak, "launches": n, "ce": float(info_k["ce"]),
+           "ce_plain": float(info_p["ce"]), "router_flips": flips,
+           "held_sequences": len(held),
+           "logits_max_abs_diff_all": max(
+               float((k.float() - p.float()).abs().max())
+               for k, p in zip(logits_k, logits_p))}
+    if "moe_aux" in info_k:
+        rec["moe_aux"] = float(info_k["moe_aux"])
+    if held:
+        # row by row: seamless-m4t-large-v2's logits take 8.4 GB
+        scale = max(float(logits_p[i].float().abs().max()) for i in held)
+        diff = max(float((logits_k[i].float() - logits_p[i].float()).abs()
+                         .max()) for i in held)
+        rec.update(logits_max_abs_diff=diff, max_abs_logit=scale,
+                   held_ce=float(ce_k[held].mean()),
+                   held_ce_plain=float(ce_p[held].mean()))
+    print(f"{label} loss: {batch} x {seq} tokens in {secs:.4f} s (median "
+          f"of {runs}; {rec['tok_per_s']:.1f} tok/s), peak {peak:.3f} GB, "
+          f"flash_attention launches {n}, CE kernels {rec['ce']!r} plain "
+          f"{rec['ce_plain']!r}, logits max |diff| over all "
+          f"{rec['logits_max_abs_diff_all']!r}, router flips {flips}, held "
+          f"{len(held)} of {batch}: logits max |diff| {rec.get('logits_max_abs_diff')!r} "
+          f"of {rec.get('max_abs_logit')!r}, CE {rec.get('held_ce')!r} vs "
+          f"{rec.get('held_ce_plain')!r}", flush=True)
+    check(n == want, f"{label} loss: flash_attention launched {n} times, "
+          f"want {want}")
+    check(math.isfinite(rec["ce"]) and math.isfinite(rec["ce_plain"]),
+          f"{label} loss: CE is not finite")
+    if cfg.dtype == "float32":
+        check(held, f"{label} loss: every sequence flipped a route")
+        check(rec["logits_max_abs_diff"]
+              <= PREFILL_RTOL * rec["max_abs_logit"],
+              f"{label} loss: logits differ by {rec['logits_max_abs_diff']}"
+              f" > {PREFILL_RTOL} * {rec['max_abs_logit']}")
+        check(abs(rec["held_ce"] - rec["held_ce_plain"])
+              <= CE_RTOL * abs(rec["held_ce_plain"]),
+              f"{label} loss: CE {rec['held_ce']} vs {rec['held_ce_plain']}"
+              f" (relative {CE_RTOL})")
+    else:
+        check(abs(rec["ce"] - rec["ce_plain"]) <= CE_ATOL_BF16,
+              f"{label} loss: CE {rec['ce']} vs {rec['ce_plain']} (within "
+              f"{CE_ATOL_BF16})")
+    out["loss"][label] = rec
+    out["launches"][f"{label} loss"] = n
+    del logits_k, logits_p
+    return b, float(loss_k)
+
+
+def moe_encdec_phase(torch, kern, kattn, ref):
+    """The MoE and encoder-decoder families at full width on the card, with
+    use_kernels=True and random weights from seed 0: (a) olmoe-1b-7b served
+    and scored in float32 and bfloat16, and its loss through
+    moe_dispatch="gather" once in float32; (b) mixtral-8x22b cut to
+    MIXTRAL_LAYERS layers, served in float32; (c) seamless-m4t-large-v2
+    served and scored in float32 and bfloat16, with stub audio frames.
+    Returns the launches of each run, the throughputs and the flips."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models import layers
+    t_phase = time.perf_counter()
+    out = {"launches": {}, "serve": {}, "loss": {}}
+    for arch, dtypes in (("olmoe-1b-7b", ("float32", "bfloat16")),
+                         ("mixtral-8x22b", ("float32",)),
+                         ("seamless-m4t-large-v2", ("float32", "bfloat16"))):
+        base = dataclasses.replace(get_config(arch), use_kernels=True)
+        batch, prompt_len, gen_len = MOE_BATCH, MOE_PROMPT, MOE_GEN
+        if arch == "mixtral-8x22b":
+            base = dataclasses.replace(base, num_layers=MIXTRAL_LAYERS)
+            batch, prompt_len, gen_len = 1, MIXTRAL_PROMPT, MIXTRAL_GEN
+        frames = prompt_len // base.encoder_frames_ratio \
+            if base.family == "encdec" else 0
+        for dtype in dtypes:
+            label = f"{arch} {dtype}"
+            cfg = dataclasses.replace(base, dtype=dtype, param_dtype=dtype)
+            model, params = _moe_encdec_serve(
+                torch, kern, kattn, ref, layers, label, cfg, batch,
+                prompt_len, gen_len, frames, out)
+            if arch != "mixtral-8x22b":
+                b, loss_einsum = _moe_encdec_loss(
+                    torch, kern, kattn, ref, layers, label, model, params,
+                    MOE_BATCH, MOE_PROMPT, frames, out)
+                if cfg.num_experts and dtype == "float32":
+                    gather = build_model(dataclasses.replace(
+                        cfg, moe_dispatch="gather"))
+                    with torch.inference_mode():
+                        loss_g = float(gather.loss(params, b)[0])
+                    gap = abs(loss_g - loss_einsum) / abs(loss_einsum)
+                    out["gather"] = {"loss": loss_g, "einsum": loss_einsum,
+                                     "relative_gap": gap}
+                    print(f"{label} loss through moe_dispatch='gather': "
+                          f"{loss_g!r}, einsum {loss_einsum!r}, relative "
+                          f"gap {gap!r}", flush=True)
+                    check(gap <= GATHER_RTOL,
+                          f"{label}: the gather path's loss is {gap} "
+                          f"relative from the einsum path's")
+                del b
+            del model, params
+            torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"moe_encdec phase: {out['seconds']:.1f} s (budget "
+          f"{MOE_ENCDEC_BUDGET_S} s)", flush=True)
     return out
 
 
@@ -3665,6 +4011,7 @@ def main() -> int:
         ssm = ssm_kernel_phase(torch, kssd, krg, ref)
         ssm_fwd = ssm_forward_phase(torch, kern, kattn, kssd, krg, ref)
         ssm_served = ssm_serving_phase(torch, kern, kattn, kssd, krg, ref)
+        moe_encdec = moe_encdec_phase(torch, kern, kattn, ref)
         experiments = experiments_phase(torch, (kern, kattn, kssd, krg))
         runtime = runtime_phase(torch, kern, ref)
         obs = obs_phase(torch, kern, ref)
@@ -3720,7 +4067,7 @@ def main() -> int:
         "library_ms": topk["library_ms"], "library": "index_add_",
         "shape": topk["shape"],
     })
-    a, b, c = attn["timed"]
+    a, b, c, d = attn["timed"]
 
     # launches of each LM kernel, by run: serving, then the SSM loss and
     # serving runs
@@ -3728,7 +4075,8 @@ def main() -> int:
         return {label: c[name] for runs in (ssm_fwd, ssm_served)
                 for label, c in runs["launches"].items() if c[name]}
 
-    attn_runs = {**served["launches"], **runs_of("flash_attention")}
+    attn_runs = {**served["launches"], **runs_of("flash_attention"),
+                 **moe_encdec["launches"]}
     kernels.append({
         "name": "flash_attention", "route": "cuda",
         "source": SOURCE.format("flash_attention"),
@@ -3740,10 +4088,10 @@ def main() -> int:
         "bound_by": a["bound_by"], "library_ms": a["library_ms"],
         "bound_6d_ms": a["bound_6d_ms"], "bound_8d_ms": a["bound_8d_ms"],
         "f32_core_ms": a["f32_core_ms"],
-        "shape": a["shape"], "shape_b": b, "shape_c": c,
+        "shape": a["shape"], "shape_b": b, "shape_c": c, "shape_d": d,
         "max_abs_err_f32": attn["max_abs_err_f32"],
         "f32_ulps_max": attn["f32_ulps_max"], "f32_ulps_limit": ATTN_F32_ULPS,
-        "float32": dict(zip("abc", attn["timed_f32"])),
+        "float32": dict(zip("abcd", attn["timed_f32"])),
         "launches_by_dtype": {
             dt: sum(n for label, n in attn_runs.items() if dt in label)
             for dt in ("float32", "bfloat16")},
@@ -3768,6 +4116,8 @@ def main() -> int:
     records = [
         {"ssm": {"loss": ssm_fwd["throughput"],
                  "serving": ssm_served["throughput"]}},
+        {"moe_encdec": {k: v for k, v in moe_encdec.items()
+                        if k != "launches"}},
         {"topk_sim": topk_sim, "mesh": mesh},
         {"experiments": {k: v for k, v in experiments.items()
                          if k != "mains"}},

@@ -14,6 +14,7 @@ def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
     The wrappers therefore refuse on both devices alike."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NotImplementedError(
-            f"{name}: the kernel has no backward yet (ROADMAP A9, LM "
-            "training); call it under torch.no_grad() or "
-            "torch.inference_mode(), or on tensors that do not require grad")
+            f"{name}: the kernel has no backward, as the reference's Pallas "
+            "kernels have none (LM training runs the plain path); call it "
+            "under torch.no_grad() or torch.inference_mode(), or on tensors "
+            "that do not require grad")

@@ -9,7 +9,10 @@ through ``HSGD.run_rounds`` with periodic checkpoints and divergence
 telemetry.  It runs on the CUDA card unless the caller asks for the CPU
 (``main(argv, device="cpu")``).  The LM trains on its plain path through
 autograd (``use_kernels`` stays False, as ``use_pallas`` does in the
-reference's ``launch.train``); the codec kernels run at every sync.
+reference's ``launch.train``); the codec kernels run at every sync.  An
+MoE architecture trains on the same ``loss``, its load-balance aux term
+included.  An encoder-decoder raises ``ValueError``: the token stream has
+no encoder frames for its loss, and the reference's driver fails there too.
 
 ``--backend mesh`` runs the same entry point in ``prod(level sizes)`` spawned
 processes, one per worker, joined in a ``gloo`` world on the one card
@@ -289,6 +292,12 @@ def main(argv=None, device: DeviceLike = "cuda"):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
+    if cfg.family == "encdec":
+        # the token stream carries no encoder frames; the reference's
+        # driver fails on the missing "enc_inputs" at its first step
+        raise ValueError(f"launch.train: {cfg.name} is an encoder-decoder, "
+                         "whose loss needs enc_inputs, and the token stream "
+                         "has none (nor has the reference's driver)")
     model = build_model(cfg)
     spec = make_spec(args)
     n = spec.n_workers

@@ -5,9 +5,11 @@ Plain functions over dicts of tensors, batch-first, with the reference's
 names, params keys and (d_in, d_out) weight layout.  Random init draws
 from an explicit ``torch.Generator`` on that generator's device.  This
 module carries norms, RoPE, GQA attention (full-sequence, cache fill and
-one-token decode), the four dense MLPs, the depthwise causal conv1d, the
-Mamba-2 SSD block and the Griffin RG-LRU block; MoE comes with ROADMAP
-A9's later part.
+one-token decode), the four dense MLPs, the MoE layer (capacity dispatch
+by one-hot einsums or by gathers, and every expert at decode), the
+depthwise causal conv1d, the Mamba-2 SSD block and the Griffin RG-LRU
+block.  The MoE's products stay plain PyTorch matmuls, as the reference's
+stay XLA einsums outside any Pallas kernel.
 
 Where ``cfg.use_kernels`` is set, the full-sequence forward goes through
 the CUDA kernels under exactly the reference's conditions: self-attention
@@ -307,6 +309,159 @@ def _einsum(eq: str, *ops: torch.Tensor) -> torch.Tensor:
     first (``torch.einsum`` refuses mixed dtypes)."""
     dt = functools.reduce(torch.promote_types, (o.dtype for o in ops))
     return torch.einsum(eq, *(o.to(dt) for o in ops))
+
+
+# --------------------------------------------------------------------------
+# MoE (GShard-style capacity dispatch; every expert at decode)
+# --------------------------------------------------------------------------
+def moe_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    d, f, e = cfg.d_model, cfg.moe_d_ff, cfg.num_experts
+    dt = torch_dtype(cfg.param_dtype)
+    p = {"router": dense_init(gen, d, e, "float32"),
+         "wi": normal(gen, (e, d, f), 1.0 / math.sqrt(d)).to(dt),
+         "wo": normal(gen, (e, f, d), 1.0 / math.sqrt(f)).to(dt)}
+    if cfg.mlp_variant in ("swiglu", "geglu"):
+        p["wg"] = normal(gen, (e, d, f), 1.0 / math.sqrt(d)).to(dt)
+    return p
+
+
+def _one_hot(idx: torch.Tensor, n: int, dtype: torch.dtype) -> torch.Tensor:
+    """``jax.nn.one_hot``: an index outside [0, n) gives a row of zeros."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
+
+
+def _route(p: Params, xt: torch.Tensor,
+           k: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Router probabilities (T, E) in float32, and the top-k gates (T, k),
+    renormalised, with their experts (T, k).  ``jax.lax.top_k`` orders by
+    probability descending and, among equal ones, the lower expert first;
+    ``torch.topk`` promises no order among ties, so the experts are chosen
+    by a stable descending sort (the capacity order depends on it)."""
+    probs = torch.softmax(xt.to(torch.float32) @ p["router"], dim=-1)
+    gate_idx = torch.sort(probs, dim=-1, descending=True,
+                          stable=True).indices[..., :k]
+    gate_vals = torch.gather(probs, -1, gate_idx)
+    gate_vals = gate_vals / (gate_vals.sum(-1, keepdim=True) + 1e-9)
+    return probs, gate_vals, gate_idx
+
+
+def _expert_mlp(p: Params, xe: torch.Tensor,
+                cfg: ModelConfig) -> torch.Tensor:
+    """The experts' outputs: a gated MLP where the params hold ``wg``
+    (swiglu, geglu), squared ReLU otherwise, as in the reference.  xe is
+    (E, C, D), each expert's own tokens, or (T, D), the same tokens for
+    every expert; either way (E, ., D) comes back, from batched matmuls
+    over the experts that read the weights where they lie."""
+    def proj(w):
+        return torch.matmul(xe, w.to(xe.dtype))
+
+    if "wg" in p:
+        act = F.silu if cfg.mlp_variant == "swiglu" else _gelu
+        h = act(proj(p["wg"])) * proj(p["wi"])
+    else:
+        h = torch.square(torch.relu(proj(p["wi"])))
+    return torch.matmul(h, p["wo"].to(h.dtype))
+
+
+def moe_apply(p: Params, x: torch.Tensor,
+              cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Capacity-factor top-k MoE (GShard-style einsum dispatch).
+
+    x: (B, S, D) -> (y, aux_loss).  Long inputs are cut into token groups
+    of ``cfg.moe_group`` (capacity applies per group), where the reference
+    runs ``lax.scan`` over them; aux is then the mean over groups."""
+    b, s, d = x.shape
+    t = b * s
+    group = cfg.moe_group
+    if t > group and t % group == 0:
+        ys, auxes = zip(*(_moe_group(p, xg, cfg)
+                          for xg in x.reshape(t // group, group, d)))
+        return torch.stack(ys).reshape(b, s, d), torch.stack(auxes).mean()
+    y, aux = _moe_group(p, x.reshape(t, d), cfg)
+    return y.reshape(b, s, d), aux
+
+
+def _moe_group(p: Params, xt: torch.Tensor,
+               cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    t = xt.shape[0]
+    e, k = cfg.num_experts, cfg.num_experts_per_tok
+    cap = max(1, int(cfg.capacity_factor * t * k / e))
+    probs, gate_vals, gate_idx = _route(p, xt, k)
+
+    # load-balance aux loss (Switch): E * sum_e f_e * p_e
+    me = probs.mean(0)                                             # (E,)
+    ce = _one_hot(gate_idx.reshape(-1), e, torch.float32).sum(0) / (t * k)
+    aux = e * torch.sum(me * ce) * cfg.router_aux_loss_coef
+
+    # position of each (token, slot) within its expert's capacity buffer,
+    # counted token-major, slot-minor; a slot at or past cap is dropped
+    onehot = _one_hot(gate_idx, e, torch.int32)                    # (T, k, E)
+    flat = onehot.reshape(t * k, e)
+    pos_in_expert = (torch.cumsum(flat, dim=0) - flat).reshape(t, k, e)
+    pos = (pos_in_expert * onehot).sum(-1)                         # (T, k)
+    in_cap = (pos < cap) & (onehot.sum(-1) > 0)
+
+    if cfg.moe_dispatch == "gather":
+        return _moe_gather_path(p, xt, cfg, cap, gate_idx, gate_vals, pos,
+                                in_cap), aux
+
+    # dispatch tensor (T, E, C) one-hot; combine weights folded in
+    dt = xt.dtype
+    pos_oh = _one_hot(pos, cap, dt)                                # (T, k, C)
+    disp = _einsum("tke,tkc->tec", (onehot * in_cap[..., None]).to(dt),
+                   pos_oh)
+    expert_in = _einsum("tec,td->ecd", disp, xt)                   # (E, C, D)
+    expert_out = _expert_mlp(p, expert_in, cfg)                    # (E, C, D)
+    # the reference's einsum "tec,tk,tke->tec": a token's k experts are
+    # distinct, so each (t, e) meets one nonzero term and the product is
+    # exact in any order
+    gate_e = _einsum("tk,tke->te", gate_vals.to(dt), onehot.to(dt))
+    y = _einsum("tec,ecd->td", disp * gate_e[..., None], expert_out)
+    return y, aux
+
+
+def _moe_gather_path(p: Params, xt: torch.Tensor, cfg: ModelConfig,
+                     cap: int, gate_idx: torch.Tensor,
+                     gate_vals: torch.Tensor, pos: torch.Tensor,
+                     in_cap: torch.Tensor) -> torch.Tensor:
+    """Index-based dispatch and combine (``cfg.moe_dispatch == "gather"``):
+    an (E, C) slot -> token table and gathers in place of the two one-hot
+    einsums; the same selection as the einsum path."""
+    t, d = xt.shape
+    e, k = cfg.num_experts, cfg.num_experts_per_tok
+    flat_pos = torch.where(in_cap.reshape(-1), pos.reshape(-1), cap)
+    flat_tok = torch.arange(t, device=xt.device).repeat_interleave(k)
+    # slot -> token id (t is the padding token); the extra capacity column
+    # takes the dropped assignments, the rest are unique
+    slot_tok = torch.full((e * (cap + 1),), t, dtype=torch.long,
+                          device=xt.device).scatter(
+        0, gate_idx.reshape(-1) * (cap + 1) + flat_pos, flat_tok)
+    slot_tok = slot_tok.reshape(e, cap + 1)[:, :cap]               # (E, C)
+    xt_pad = torch.cat([xt, xt.new_zeros((1, d))])
+    expert_in = xt_pad[slot_tok]                                   # (E, C, D)
+    expert_out = _expert_mlp(p, expert_in, cfg)                    # (E, C, D)
+
+    # combine: y[t] = sum_k gate[t,k] * expert_out[e(t,k), pos(t,k)]
+    picked = expert_out[gate_idx, torch.clamp(pos, max=cap - 1)]   # (T, k, D)
+    w = (gate_vals * in_cap).to(xt.dtype)                          # (T, k)
+    return _einsum("tk,tkd->td", w, picked)
+
+
+def moe_apply_dense(p: Params, x: torch.Tensor,
+                    cfg: ModelConfig) -> torch.Tensor:
+    """All-expert weighted MoE for decode steps (few tokens, where capacity
+    dispatch would drop some).  The expert products run as one batched
+    matmul over experts, which reads the weights where they lie."""
+    b, s, d = x.shape
+    e, k = cfg.num_experts, cfg.num_experts_per_tok
+    xt = x.reshape(b * s, d)
+    _, gate_vals, gate_idx = _route(p, xt, k)
+    full_gates = torch.zeros((b * s, e), dtype=x.dtype,
+                             device=x.device).scatter(
+        1, gate_idx, gate_vals.to(x.dtype))
+    yall = _expert_mlp(p, xt, cfg)                                 # (E, T, D)
+    y = _einsum("te,etd->td", full_gates, yall)
+    return y.reshape(b, s, d)
 
 
 # --------------------------------------------------------------------------

@@ -2,12 +2,14 @@
 ``repro.models.model``)."""
 from __future__ import annotations
 
+from typing import Union
+
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.encdec import EncDecLM
 from repro_torch.models.transformer import DecoderLM
 
 
-def build_model(cfg: ModelConfig) -> DecoderLM:
+def build_model(cfg: ModelConfig) -> Union[DecoderLM, EncDecLM]:
     if cfg.family == "encdec":
-        raise NotImplementedError(
-            "the encoder-decoder family is not ported yet (ROADMAP A9)")
+        return EncDecLM(cfg)
     return DecoderLM(cfg)

@@ -1,6 +1,7 @@
-"""Decoder-only LM for the dense, local-attention, SSM (Mamba-2 SSD) and
-hybrid (Griffin RG-LRU + local attention) families (PyTorch counterpart of
-``repro.models.transformer``).
+"""Decoder-only LM for the dense, local-attention, MoE, SSM (Mamba-2 SSD)
+and hybrid (Griffin RG-LRU + local attention) families, and the blocks
+the encoder-decoder backbone (:mod:`repro_torch.models.encdec`) is built
+from (PyTorch counterpart of ``repro.models.transformer``).
 
 Layers are grouped into *pattern units* (``cfg.block_pattern``) that repeat
 ``cfg.num_pattern_units`` times.  The params tree is the reference's, leaf
@@ -12,7 +13,7 @@ recurrentgemma-2b's 2 trailing RG-LRU blocks).  Where the reference runs
 so JAX params carry over through :func:`params_from_numpy` unchanged.
 
 Three entry points per model:
-  * ``loss``        — training forward + mean token CE
+  * ``loss``        — training forward + mean token CE (+ MoE aux)
   * ``prefill``     — full-sequence forward that also fills decode caches
   * ``decode_step`` — one-token step against the caches
 
@@ -23,16 +24,15 @@ on every RG-LRU layer.  ``prefill`` launches flash attention only: its SSD
 and RG-LRU layers run the model's default paths, which also give the final
 state the cache needs (the reference's ``block_prefill`` calls
 ``ssd_scan_ref`` and ``rglru_core`` without the kernel), and decode is a
-one-step recurrence.
+one-step recurrence.  An MoE block's experts are plain matmuls on every
+path: capacity dispatch in ``forward``, ``loss`` and ``prefill``, every
+expert weighted by its gate in ``decode_step``, as in the reference.
 
 Caches differ from the reference in two ways: ``decode_step`` writes the
 new token's k/v, SSM state, RG-LRU state and conv buffer into the cache
 tensors in place (the reference builds new arrays), so a cache passed to
 it must not be used again; and the position ``cache["pos"]`` is a Python
 int, so indexing the cache never waits for the card.
-
-MoE blocks are not in this slice: their ``block_init`` raises
-``NotImplementedError`` naming ROADMAP A9.
 """
 from __future__ import annotations
 
@@ -66,6 +66,27 @@ def _stack(trees):
     return torch.stack(trees)
 
 
+def _stack_draws(n: int, draw):
+    """``draw(u)`` for u in range(n), each a dict of tensors of one
+    structure, stacked on a new axis 0 as they come: the peak is the stack
+    plus one draw, not twice the stack (a full-width MoE's experts)."""
+    out = None
+    for u in range(n):
+        tree = draw(u)
+        if out is None:
+            out = _tree_map(lambda t: t.new_empty((n,) + t.shape), tree)
+        _copy_into(out, tree, u)
+    return out
+
+
+def _copy_into(stack, tree, u: int) -> None:
+    if isinstance(stack, dict):
+        for k in stack:
+            _copy_into(stack[k], tree[k], u)
+    else:
+        stack[u].copy_(tree)
+
+
 def _unit(tree, u: int):
     """The u-th unit's view of a unit-stacked tree (no copy)."""
     return _tree_map(lambda t: t[u], tree)
@@ -74,11 +95,8 @@ def _unit(tree, u: int):
 # --------------------------------------------------------------------------
 # block init / apply
 # --------------------------------------------------------------------------
-def block_init(gen: torch.Generator, kind: str, cfg: ModelConfig) -> Params:
-    if cfg.num_experts:
-        raise NotImplementedError(
-            "MoE blocks are not ported yet (ROADMAP A9); this slice carries "
-            "the dense attention, SSD and RG-LRU blocks")
+def block_init(gen: torch.Generator, kind: str, cfg: ModelConfig,
+               cross: bool = False) -> Params:
     p: Params = {"ln1": L.norm_init(cfg.d_model, cfg, gen.device)}
     if kind in _ATTN_KINDS:
         p["attn"] = L.attention_init(gen, cfg)
@@ -88,9 +106,15 @@ def block_init(gen: torch.Generator, kind: str, cfg: ModelConfig) -> Params:
         p["rglru"] = L.rglru_init(gen, cfg)
     else:
         raise ValueError(kind)
+    if cross:
+        p["lnx"] = L.norm_init(cfg.d_model, cfg, gen.device)
+        p["xattn"] = L.attention_init(gen, cfg)
     if cfg.mlp_variant != "none" and cfg.d_ff > 0 and kind != "ssd":
         p["ln2"] = L.norm_init(cfg.d_model, cfg, gen.device)
-        p["mlp"] = L.mlp_init(gen, cfg)
+        if cfg.num_experts:
+            p["moe"] = L.moe_init(gen, cfg)
+        else:
+            p["mlp"] = L.mlp_init(gen, cfg)
     return p
 
 
@@ -98,16 +122,46 @@ def _mixer_window(kind: str, cfg: ModelConfig) -> Optional[int]:
     return cfg.sliding_window if kind == "local" else None
 
 
-def _mlp_residual(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    if "ln2" in p:
-        x = x + L.mlp_apply(p["mlp"], L.apply_norm(p["ln2"], x, cfg), cfg)
-    return x
+def _cross_residual(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                    positions: torch.Tensor, enc_kv) -> torch.Tensor:
+    """x plus the cross-attention over the encoder's (k, v), where the
+    block has one: every query sees every frame, no RoPE (the plain path,
+    as the mask is explicit)."""
+    if "xattn" not in p:
+        return x
+    if enc_kv is None:
+        raise ValueError("a cross-attention block needs enc_kv")
+    h = L.apply_norm(p["lnx"], x, cfg)
+    full = torch.ones((h.shape[-2], enc_kv[0].shape[-3]), dtype=torch.bool,
+                      device=x.device)
+    return x + L.attention_apply(p["xattn"], h, cfg, positions=positions,
+                                 kv=enc_kv, mask=full, use_rope=False)
+
+
+def _mlp_residual(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                  decode: bool = False
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """x plus the block's MLP or MoE of ln2(x), and the MoE's aux loss
+    (None without one, and at ``decode``, where every expert runs)."""
+    if "ln2" not in p:
+        return x, None
+    h = L.apply_norm(p["ln2"], x, cfg)
+    if "mlp" in p:
+        return x + L.mlp_apply(p["mlp"], h, cfg), None
+    if decode:
+        return x + L.moe_apply_dense(p["moe"], h, cfg), None
+    h, aux = L.moe_apply(p["moe"], h, cfg)
+    return x + h, aux
 
 
 def block_apply(p: Params, x: torch.Tensor, kind: str, cfg: ModelConfig, *,
-                positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence block. Returns (x, moe_aux); moe_aux is 0 (no MoE)."""
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+                positions: torch.Tensor,
+                enc_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                self_mask: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence block. Returns (x, moe_aux); moe_aux is 0 without an
+    MoE.  ``self_mask`` overrides the causal mask (the encoder's
+    bidirectional one), which routes the attention to the plain path."""
     h = L.apply_norm(p["ln1"], x, cfg)
     if kind == "ssd":
         h = L.ssd_apply(p["ssd"], h, cfg)
@@ -115,14 +169,18 @@ def block_apply(p: Params, x: torch.Tensor, kind: str, cfg: ModelConfig, *,
         h = L.rglru_apply(p["rglru"], h, cfg)
     else:
         h = L.attention_apply(p["attn"], h, cfg, positions=positions,
-                              window=_mixer_window(kind, cfg))
-    return _mlp_residual(p, x + h, cfg), aux
+                              window=_mixer_window(kind, cfg), mask=self_mask)
+    x = _cross_residual(p, x + h, cfg, positions, enc_kv)
+    x, aux = _mlp_residual(p, x, cfg)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 # ---- prefill: same forward but emits decode caches -------------------------
 def block_prefill(p: Params, x: torch.Tensor, kind: str, cfg: ModelConfig, *,
-                  positions: torch.Tensor,
-                  max_len: int) -> Tuple[torch.Tensor, Params]:
+                  positions: torch.Tensor, max_len: int,
+                  enc_kv=None) -> Tuple[torch.Tensor, Params]:
     """Returns (x_out, cache) where cache layout matches block_decode.  The
     SSD and RG-LRU blocks run their default paths (no kernel), as the
     reference's prefill does, and keep their conv buffer from the pre-conv
@@ -133,72 +191,75 @@ def block_prefill(p: Params, x: torch.Tensor, kind: str, cfg: ModelConfig, *,
         h, state, xbc = L.ssd_forward(p["ssd"], h, cfg, use_kernels=False)
         cache: Params = {"ssm": state,
                          "conv": L.last_rows(xbc, cfg.ssm_conv_width - 1)}
-        return _mlp_residual(p, x + h, cfg), cache
-    if kind == "rglru":
+    elif kind == "rglru":
         h, h_final, xs_pre = L.rglru_forward(p["rglru"], h, cfg,
                                              use_kernels=False)
         cache = {"h": h_final,
                  "conv": L.last_rows(xs_pre, cfg.conv1d_width - 1)}
-        return _mlp_residual(p, x + h, cfg), cache
-    k, v = L.attention_kv(p["attn"], h, cfg, positions=positions)
-    if kind == "global":
-        kc = k.new_zeros((b, max_len) + k.shape[2:])
-        vc = v.new_zeros((b, max_len) + v.shape[2:])
-        kc[:, :s] = k
-        vc[:, :s] = v
-        cache = {"k": kc, "v": vc}
     else:
-        w = cfg.sliding_window
-        # slot j holds the last prompt position p with p % w == j
-        idx = np.array([s - 1 - ((s - 1 - j) % w) for j in range(w)])
-        valid = idx >= 0
-        idx_c = torch.as_tensor(np.where(valid, idx, 0), device=x.device)
-        keep = torch.as_tensor(valid, device=x.device)[None, :, None, None]
-        kc = torch.where(keep, k[:, idx_c], torch.zeros((), dtype=k.dtype,
-                                                        device=x.device))
-        vc = torch.where(keep, v[:, idx_c], torch.zeros((), dtype=v.dtype,
-                                                        device=x.device))
-        slot_pos = torch.as_tensor(np.where(valid, idx, -1), dtype=torch.int32,
-                                   device=x.device)
-        cache = {"k": kc, "v": vc, "slot_pos": slot_pos}
-    h = L.attention_apply(p["attn"], h, cfg, positions=positions,
-                          window=_mixer_window(kind, cfg))
-    return _mlp_residual(p, x + h, cfg), cache
+        k, v = L.attention_kv(p["attn"], h, cfg, positions=positions)
+        if kind == "global":
+            kc = k.new_zeros((b, max_len) + k.shape[2:])
+            vc = v.new_zeros((b, max_len) + v.shape[2:])
+            kc[:, :s] = k
+            vc[:, :s] = v
+            cache = {"k": kc, "v": vc}
+        else:
+            w = cfg.sliding_window
+            # slot j holds the last prompt position p with p % w == j
+            idx = np.array([s - 1 - ((s - 1 - j) % w) for j in range(w)])
+            valid = idx >= 0
+            idx_c = torch.as_tensor(np.where(valid, idx, 0), device=x.device)
+            keep = torch.as_tensor(valid, device=x.device)[None, :, None, None]
+            zero = torch.zeros((), dtype=k.dtype, device=x.device)
+            kc = torch.where(keep, k[:, idx_c], zero)
+            vc = torch.where(keep, v[:, idx_c], zero)
+            slot_pos = torch.as_tensor(np.where(valid, idx, -1),
+                                       dtype=torch.int32, device=x.device)
+            cache = {"k": kc, "v": vc, "slot_pos": slot_pos}
+        h = L.attention_apply(p["attn"], h, cfg, positions=positions,
+                              window=_mixer_window(kind, cfg))
+    x = _cross_residual(p, x + h, cfg, positions, enc_kv)
+    return _mlp_residual(p, x, cfg)[0], cache
 
 
 def block_decode(p: Params, x: torch.Tensor, kind: str, cfg: ModelConfig, *,
-                 cache: Params, pos: int) -> Tuple[torch.Tensor, Params]:
+                 cache: Params, pos: int,
+                 enc_kv=None) -> Tuple[torch.Tensor, Params]:
     """One-token step. x: (B,1,D); pos: int (position being written).  The
     new k/v (and, for a local layer, its slot position), or the new SSM or
     RG-LRU state and conv buffer, are written into ``cache``'s tensors in
-    place; the same dict comes back."""
+    place; the same dict comes back.  A cross-attention block reads the
+    fixed encoder (k, v) of ``enc_kv``."""
     b = x.shape[0]
     h = L.apply_norm(p["ln1"], x, cfg)
+    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     if kind in ("ssd", "rglru"):
         decode = L.ssd_decode if kind == "ssd" else L.rglru_decode
         h, new = decode(p[kind], h, cfg, cache)
         for key, t in new.items():
             cache[key].copy_(t)
-        return _mlp_residual(p, x + h, cfg), cache
-    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
-    k, v = L.attention_kv(p["attn"], h, cfg, positions=positions)
-    if kind == "global":
-        cache["k"][:, pos] = k[:, 0].to(cache["k"].dtype)
-        cache["v"][:, pos] = v[:, 0].to(cache["v"].dtype)
-        cpos = torch.arange(cache["k"].shape[1], dtype=torch.int32,
-                            device=x.device)
-        cache_positions = torch.where(cpos <= pos, cpos, -1)
     else:
-        slot = pos % cfg.sliding_window
-        cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
-        cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
-        cache["slot_pos"][slot] = pos
-        cache_positions = cache["slot_pos"]
-    h = L.attention_decode(
-        p["attn"], h, cfg, k_cache=cache["k"], v_cache=cache["v"],
-        cache_positions=cache_positions.expand((b,) + cache_positions.shape),
-        position=positions[:, 0])
-    return _mlp_residual(p, x + h, cfg), cache
+        k, v = L.attention_kv(p["attn"], h, cfg, positions=positions)
+        if kind == "global":
+            cache["k"][:, pos] = k[:, 0].to(cache["k"].dtype)
+            cache["v"][:, pos] = v[:, 0].to(cache["v"].dtype)
+            cpos = torch.arange(cache["k"].shape[1], dtype=torch.int32,
+                                device=x.device)
+            cache_positions = torch.where(cpos <= pos, cpos, -1)
+        else:
+            slot = pos % cfg.sliding_window
+            cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
+            cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+            cache["slot_pos"][slot] = pos
+            cache_positions = cache["slot_pos"]
+        h = L.attention_decode(
+            p["attn"], h, cfg, k_cache=cache["k"], v_cache=cache["v"],
+            cache_positions=cache_positions.expand(
+                (b,) + cache_positions.shape),
+            position=positions[:, 0])
+    x = _cross_residual(p, x + h, cfg, positions, enc_kv)
+    return _mlp_residual(p, x, cfg, decode=True)[0], cache
 
 
 def block_cache_init(kind: str, cfg: ModelConfig, batch: int, max_len: int,
@@ -219,6 +280,22 @@ def block_cache_init(kind: str, cfg: ModelConfig, batch: int, max_len: int,
     if kind == "rglru":
         return L.rglru_init_state(cfg, batch, dtype, device)
     raise ValueError(kind)
+
+
+def positions_of(b: int, s: int, device) -> torch.Tensor:
+    """The positions 0..s-1 of every row, (b, s) int32."""
+    return torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
+
+
+def token_ce(logits: torch.Tensor, batch: Dict[str, torch.Tensor]):
+    """Mean token cross-entropy of ``batch["targets"]`` under ``logits``
+    (in float32), over ``batch["mask"]`` where given."""
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    nll = -logp.gather(-1, batch["targets"].long()[..., None])[..., 0]
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones_like(nll)
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
 
 # --------------------------------------------------------------------------
@@ -249,11 +326,13 @@ class DecoderLM:
             params["lm_head"] = L.dense_init(gen, cfg.d_model, cfg.vocab_size,
                                              cfg.param_dtype)
         n_units = cfg.num_pattern_units
-        units = [[block_init(gen, kind, cfg) for kind in cfg.block_pattern]
-                 for _ in range(n_units)]
-        params["units"] = tuple(
-            _stack([units[u][j] for u in range(n_units)])
-            for j in range(len(cfg.block_pattern))) if n_units else ()
+        # drawn unit by unit, each unit's blocks in pattern order
+        units = _stack_draws(n_units, lambda u: {
+            j: block_init(gen, kind, cfg)
+            for j, kind in enumerate(cfg.block_pattern)})
+        params["units"] = tuple(units[j] for j in
+                                range(len(cfg.block_pattern))) \
+            if n_units else ()
         params["rem"] = tuple(block_init(gen, kind, cfg)
                               for kind in cfg.pattern_remainder)
         return _tree_map(lambda t: t.to(dev), params)
@@ -266,9 +345,6 @@ class DecoderLM:
         x = L.apply_norm(params["final_norm"], x, self.cfg)
         head = params["embed"].T if self.cfg.tie_embeddings else params["lm_head"]
         return x @ head.to(x.dtype)
-
-    def _positions(self, b: int, s: int, device) -> torch.Tensor:
-        return torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
 
     def _blocks(self, params):
         """(block params, kind, unit index or None, pattern index) in depth
@@ -286,7 +362,7 @@ class DecoderLM:
         """tokens (B,S) -> (logits (B,S,V), moe_aux scalar)."""
         b, s = tokens.shape
         x = self._embed(params, tokens)
-        positions = self._positions(b, s, x.device)
+        positions = positions_of(b, s, x.device)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for p, kind, _, _ in self._blocks(params):
             x, a = block_apply(p, x, kind, self.cfg, positions=positions)
@@ -296,13 +372,7 @@ class DecoderLM:
     def loss(self, params: Params,
              batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict]:
         logits, aux = self.forward(params, batch["tokens"])
-        logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
-        tgt = batch["targets"].long()
-        nll = -logp.gather(-1, tgt[..., None])[..., 0]
-        mask = batch.get("mask")
-        if mask is None:
-            mask = torch.ones_like(nll)
-        ce = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+        ce = token_ce(logits, batch)
         return ce + aux, {"ce": ce, "moe_aux": aux}
 
     # ---- serving ---------------------------------------------------------
@@ -327,7 +397,7 @@ class DecoderLM:
         cfg = self.cfg
         b, s = tokens.shape
         x = self._embed(params, tokens)
-        positions = self._positions(b, s, x.device)
+        positions = positions_of(b, s, x.device)
         unit_caches = [[] for _ in cfg.block_pattern]
         rem_caches = []
         for p, kind, u, j in self._blocks(params):

@@ -211,6 +211,14 @@ ATTN_CASES = [
     (8, 1024, 1024, 14, 2, 64, "bfloat16", True, None),    # qwen2 prefill
     (1, 2048, 2048, 16, 8, 256, "bfloat16", True, 1024),   # gemma3 local
     (8, 1024, 1024, 10, 1, 256, "bfloat16", True, 2048),   # recurrentgemma
+    # olmoe-1b-7b's heads (16 over 16 of 128), seamless-m4t-large-v2's
+    # decoder (16 over 16 of 64), mixtral-8x22b's (48 over 8 of 128) with
+    # a window shorter than S
+    (2, 1024, 1024, 16, 16, 128, "bfloat16", True, None),
+    (2, 1024, 1024, 16, 16, 128, "float32", True, None),
+    (2, 300, 300, 16, 16, 64, "float32", True, None),
+    (1, 1100, 1100, 48, 8, 128, "bfloat16", True, 700),
+    (1, 1100, 1100, 48, 8, 128, "float32", True, 700),
     *[(2, 300, 300, 4, 2, d, "float32", True, None)
       for d in (32, 64, 96, 128, 192, 256)],
     *[(2, 300, 300, 4, 2, d, "bfloat16", True, None) for d in (32, 192)],

@@ -283,21 +283,6 @@ def test_param_tree_and_count_match_reference():
         assert n == cfg.param_count() + conv_bias, arch
 
 
-@pytest.mark.parametrize("arch,what", [
-    ("mixtral-8x22b", "MoE blocks"),
-    ("olmoe-1b-7b", "MoE blocks"),
-])
-def test_unported_blocks_raise(arch, what):
-    pm = build_model(reduced(get_config(arch)))
-    with pytest.raises(NotImplementedError, match=f"{what}.*A9"):
-        pm.init(torch.Generator().manual_seed(0), device="cpu")
-
-
-def test_unported_encdec_raises():
-    with pytest.raises(NotImplementedError, match="A9"):
-        build_model(reduced(get_config("seamless-m4t-large-v2")))
-
-
 def test_serve_launcher_on_cpu(capsys):
     from repro_torch.launch.serve import main
     res = main(["--arch", "qwen2-0.5b", "--reduced", "--batch", "2",

@@ -481,7 +481,7 @@ def test_kernels_refuse_grad():
         "flash_attention": lambda g: kattn.flash_attention(g(q), q, q),
     }
     for name, call in calls.items():
-        with pytest.raises(NotImplementedError, match=f"{name}.*A9"):
+        with pytest.raises(NotImplementedError, match=f"{name}.*no backward"):
             call(lambda t: t.clone().requires_grad_(True))
         with torch.no_grad():
             call(lambda t: t.clone().requires_grad_(True))
