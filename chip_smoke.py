@@ -212,8 +212,8 @@ or of the JAX package.  It
    ``torch.cuda.set_sync_debug_mode("warn")``, probes on and off: equal
    synchronizing-call counts, and a drain of the ring exactly one; the
    CUDA launches the probes add per local step and per sync round
-   (``torch.profiler``), beside ``Metrics.op_budget("sim")`` (recorded,
-   not asserted).  The twin ``repro_torch.experiments.bench_obs``'s
+   (``torch.profiler``), beside ``Metrics.op_budget("sim")`` (which counts
+   reduces, not launches; the analysis phase enforces it).  The twin ``repro_torch.experiments.bench_obs``'s
    timed leg on the card: ``ratio_best_pair >= MIN_RATIO`` (0.95) for
    both topologies, steps/s of every repeat printed.  The quickstart
    world as async int8 (``async_levels={1: 1}``) with probes on: the
@@ -262,16 +262,42 @@ or of the JAX package.  It
    MESH_ATOL of the sim's.  (d) ``launch.serve --ckpt-dir`` on a params
    checkpoint written on the card: greedy tokens equal to the same params'
    in memory;
-15. writes the records below, with the card's line, to
+15. analysis phase: the audit of ``repro_torch.analysis`` on the card
+   (see the note at ANALYSIS_BUDGET_S).  The matrix's nine sim configs
+   audited on the card with the kernels equal their CPU audits with the
+   plain versions field for field, each sync event's kernel regions equal
+   the launch counters of one recorded sync, and each distinct round body
+   raises no synchronizing-call warning under
+   ``torch.cuda.set_sync_debug_mode("warn")`` (R3's zero); the six mesh
+   configs and ``bench_obs``'s static leg run in one launch of eight gloo
+   ranks on the card; the fifteen reports pass the check against
+   ``ANALYSIS_budget_torch.json`` with no waiver.  ``launch.train
+   --audit`` at TRAIN_ARGV's full width: each event's ops and payload
+   and the WireStats bytes beside their prediction.  The twin of
+   ``benchmarks/bench_comms.py`` with its wall-clock legs on the card:
+   the static asserts hold, and the two wall-clock bounds are printed and
+   recorded whatever they read;
+16. writes the records below, with the card's line, to
    ``chiprun_out/chip_smoke.json``, then prints one ``{"ssm": ...}`` JSON
    line with the SSM throughputs, one ``{"moe_encdec": ...}`` line, one
    ``{"topk_sim": ..., "mesh": ...}`` line, one ``{"experiments": ...}``
    line, one ``{"runtime": ...}`` line, one ``{"obs": ...}`` line, one
    ``{"population": ...}`` line, one ``{"train": ...}`` line, one
-   ``{"kernels": [...]}`` JSON line (all nine kernels), then the result
-   line ``{"ok": true, "device": {...}}`` last.
+   ``{"analysis": ...}`` line, one ``{"kernels": [...]}`` JSON line (all
+   nine kernels), then the result line ``{"ok": true, "device": {...}}``
+   last.
 
 Any failed phase exits non-zero before the result line.
+
+    python3 chip_smoke.py --phase analysis,obs
+
+builds every kernel and runs only the named phases (comma-separated, in
+the order above: kernels, main_path, topk_kernel, topk_sim, mesh,
+attention, serving, ssm_kernel, ssm_forward, ssm_serving, moe_encdec,
+experiments, runtime, obs, population, train, analysis), writes their
+records to ``chiprun_out/chip_smoke_phases.json``, prints one JSON line
+per phase and the result line last.  The ``kernels`` line needs every
+phase, so it is printed only by a run without ``--phase``.
 
     python3 chip_smoke.py --profile
 
@@ -3168,8 +3194,9 @@ def obs_phase(torch, kern, ref):
     print(f"obs extra CUDA launches with probes on: per local step "
           f"{extra['per_local_step']}, per sync round {extra['sync']} (of "
           f"which the probe row {extra['sync_row']}); "
-          f"Metrics.op_budget('sim') = {on['op_budget_sim']} (a jaxpr "
-          f"count of the reference's, recorded, not asserted); "
+          f"Metrics.op_budget('sim') = {on['op_budget_sim']} (counts "
+          f"reduces, not launches: the audit enforces it in the analysis "
+          f"phase); "
           f"{rec['card']}", flush=True)
     check(on["local"]["syncs"] == off["local"]["syncs"]
           and on["sync"]["syncs"] == off["sync"]["syncs"],
@@ -3182,7 +3209,7 @@ def obs_phase(torch, kern, ref):
 
     # the twin's timed leg on the card
     t0 = time.perf_counter()
-    twin = bench_obs.run(quick=True, device="cuda")
+    twin = bench_obs.run(quick=True, device="cuda", backends=("sim",))
     for tname, row in twin["topologies"].items():
         print(f"bench_obs {tname}: steps/s off {row['off']['steps_per_sec_all']}"
               f" on {row['on']['steps_per_sec_all']}, ratio per repeat "
@@ -3872,6 +3899,234 @@ def train_phase(torch, kern, ref):
     return rec
 
 
+# analysis phase: the audit (repro_torch.analysis) on the card.  (a) the
+# matrix's nine sim configs audited on the card with the kernels and on
+# the CPU with their plain versions: the two reports equal field for
+# field; each sync event's kernel regions equal the launch counters of
+# one recorded sync; each distinct round body called once under
+# torch.cuda.set_sync_debug_mode("warn") raises no synchronizing-call
+# warning (R3's zero, cross-checked; a warning's sites are printed and
+# fail the phase).  (b) the six mesh configs and bench_obs's static leg
+# on both topologies in one launch of ANALYSIS_MESH_WORKERS gloo ranks on
+# the card.  The fifteen card reports pass the budget's check
+# (ANALYSIS_budget_torch.json, no waiver), as ``python -m
+# repro_torch.analysis --check`` runs it; bench_obs's static leg on the
+# sim on the card too.  (c) launch.train --audit at TRAIN_ARGV's full
+# width, ANALYSIS_TRAIN_STEPS steps: each event's ops, payload and the
+# WireStats bytes printed beside the prediction for one f32 bucket of
+# TRAIN_PARAMS elements (1 op, 4 bytes an element, int8 plus one f32
+# scale per 256), no finding.  (d) bench_comms's twin with --wall-clock on
+# the card: its static asserts hold (a failure fails the phase); its two
+# wall-clock bounds are printed and recorded, true or false, and never
+# loosened.  The phase should take under ANALYSIS_BUDGET_S (printed)
+ANALYSIS_MESH_WORKERS = 8
+ANALYSIS_TRAIN_STEPS = 2
+ANALYSIS_BUDGET_S = 90.0
+ANALYSIS_INT8_BLOCK = 256
+
+
+def analysis_mesh_rank(rank: int, configs, budget, device: str):
+    """One rank of the analysis phase's launch: the mesh configs' audits
+    and bench_obs's static leg on both topologies, launches counted from
+    zero; rank 0 returns its reports, probes blocks and launches."""
+    import torch
+    from repro_torch.analysis.matrix import audit_config
+    from repro_torch.experiments import bench_obs
+    from repro_torch.kernels import comms as kern
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kern.reset_launch_counts()
+    reports = [audit_config(c, budget, device).to_dict() for c in configs]
+    launches = dict(kern.launch_counts)
+    probes = {t: bench_obs.probe_block(spec, "mesh", device)
+              for t, spec in bench_obs.TOPOLOGIES.items()}
+    return {"reports": reports, "launches": launches, "probes": probes} \
+        if rank == 0 else None
+
+
+def _audit_lines(lines):
+    """The audit summary's numbers from launch.train's printed lines:
+    {event: (ops, expected, dtypes, payload bytes)}, the WireStats bytes
+    and whether it found nothing."""
+    import re
+    events, wire, clean = {}, None, False
+    for line in lines:
+        if not isinstance(line, str):
+            continue
+        m = re.match(r"\s*sync (\S+): (\d+) op\(s\) \(expected (\d+)\) "
+                     r"dtypes=(\S+) payload=(\d+)B/worker", line)
+        if m:
+            events[m.group(1)] = (int(m.group(2)), int(m.group(3)),
+                                  m.group(4), int(m.group(5)))
+        m = re.match(r"\s*wire: (\d+)B/worker declared", line)
+        if m:
+            wire = int(m.group(1))
+        clean |= line.strip() == "findings: none"
+    return events, wire, clean
+
+
+def analysis_phase(torch, kern, ref):
+    """The analysis layer on the card (see the module docstring, 15).
+    Returns the phase's record, with the kernels' launches per run under
+    ``launches``."""
+    from collections import Counter
+    from repro_torch.analysis import (BUDGET_FILE, SyncPlanReport,
+                                      check_reports, event_key, load_budget,
+                                      round_key)
+    from repro_torch.analysis.matrix import CONFIGS, build_engine
+    from repro_torch.core import compile_schedule
+    from repro_torch.experiments import bench_comms, bench_obs
+    from repro_torch.launch.mesh import launch
+    t_phase = time.perf_counter()
+    card = card_line()
+    budget = load_budget(ROOT / BUDGET_FILE)
+    launches = {name: {} for name in kern.launch_counts}
+    rec = {"card": card, "sim": {}, "mesh": {}}
+
+    def note(label, counts):
+        for name, n in counts.items():
+            if n:
+                launches[name][label] = n
+
+    # (a) the sim configs: card against CPU, kernel regions, R3 on the card
+    reports = []
+    t0 = time.perf_counter()
+    # the first switch into the warn mode reports a sync of its own
+    _, rec["sync_mode_switch"] = _sync_warnings(torch, lambda: None)
+    for config in (c for c in CONFIGS if c.startswith("sim/")):
+        got = {}
+        for dev in ("cpu", "cuda"):
+            eng, state, batch_fn = build_engine(config, dev)
+            kern.reset_launch_counts()
+            got[dev] = eng.audit(state, batch_fn, config=config)
+            if dev == "cuda":
+                note(f"analysis audit {config}", kern.launch_counts)
+        mine, cpu = got["cuda"], got["cpu"]
+        check(mine.to_dict() == cpu.to_dict(),
+              f"analysis {config}: the card's report differs from the "
+              f"CPU's:\n{mine.summary()}\n{cpu.summary()}")
+        reports.append(mine)
+        schedule = eng.topology.schedule(eng.topology.periods[0])
+        regions = {}
+        for ev in dict.fromkeys(e for e in schedule if e is not None):
+            kern.reset_launch_counts()
+            summary = eng.executor.sync_program(ev, state)
+            counts = {k: n for k, n in kern.launch_counts.items() if n}
+            check(counts == dict(Counter(summary.kernels)),
+                  f"analysis {config} {event_key(ev)}: launches {counts} "
+                  f"but the recorded kernel regions {summary.kernels}")
+            note(f"analysis sync {config} {event_key(ev)}", counts)
+            regions[event_key(ev)] = list(summary.kernels)
+        syncs = {}
+        for rnd in dict.fromkeys(compile_schedule(schedule)):
+            batches = tuple(eng._on_device(batch_fn(i), state)
+                            for i in range(rnd.n_local))
+            fn = eng.executor.round_fn(rnd)
+            torch.cuda.synchronize()
+            _, sites = _sync_warnings(torch, lambda: fn(state, batches))
+            torch.cuda.synchronize()
+            check(not sites, f"analysis {config} {round_key(rnd)}: the "
+                  f"round body synchronizes with the host at {sites}, "
+                  "where R3 found nothing")
+            syncs[round_key(rnd)] = len(sites)
+        rec["sim"][config] = {"report": mine.to_dict(),
+                              "kernel_regions": regions,
+                              "round_syncs": syncs}
+        print(f"analysis {config}: card == CPU, kernel regions {regions} "
+              f"== launches, sync warnings per round {syncs}; {card}",
+              flush=True)
+    rec["sim_s"] = time.perf_counter() - t0
+    leg = {t: bench_obs.probe_op_leg(spec, "sim", "cuda")
+           for t, spec in bench_obs.TOPOLOGIES.items()}
+    rec["bench_obs_static"] = {"sim": leg}
+
+    # (b) the mesh configs and bench_obs's mesh leg: one launch
+    t0 = time.perf_counter()
+    mesh = [c for c in CONFIGS if c.startswith("mesh/")]
+    res = launch(analysis_mesh_rank, ANALYSIS_MESH_WORKERS, backend="gloo",
+                 device="cuda", args=(mesh, budget, "cuda"),
+                 timeout=MESH_TIMEOUT)
+    rec["mesh_s"] = time.perf_counter() - t0
+    note(f"analysis mesh audits (rank 0 of {ANALYSIS_MESH_WORKERS})",
+         res["launches"])
+    for d in res["reports"]:
+        reports.append(SyncPlanReport.from_dict(d))
+        rec["mesh"][d["config"]] = d
+    rec["bench_obs_static"]["mesh"] = res["probes"]
+    for backend, by_topo in rec["bench_obs_static"].items():
+        for t, probes in by_topo.items():
+            print(f"analysis bench_obs static leg {backend} {t}: "
+                  + ", ".join(f"{k} +{d['extra_ops']} ops (budget "
+                              f"{probes['budget']}), +{d['extra_callbacks']}"
+                              f" callbacks, +{d['extra_transfers']} "
+                              f"transfers" for k, d in
+                              sorted(probes["rounds"].items()))
+                  + f"; {card}", flush=True)
+    regs, imps = check_reports(reports, budget)
+    rec["check"] = {"configs": len(reports), "regressions": regs,
+                    "improvements": imps}
+    print(f"analysis: {len(reports)} card reports against {BUDGET_FILE}: "
+          f"{len(regs)} regression(s), {len(imps)} improvement note(s) "
+          f"(mesh launch {rec['mesh_s']:.1f} s); {card}", flush=True)
+    check(len(reports) == len(CONFIGS) and not regs,
+          f"analysis: the card's reports fail the budget: {regs}")
+
+    # (c) launch.train --audit at full width
+    t0 = time.perf_counter()
+    argv = list(TRAIN_ARGV)
+    argv[argv.index("--steps") + 1] = str(ANALYSIS_TRAIN_STEPS)
+    kern.reset_launch_counts()
+    history, lines = _train(argv + ["--audit"], "cuda")
+    note("analysis train --audit (full width)", kern.launch_counts)
+    events, wire, clean = _audit_lines(lines["other"])
+    n = TRAIN_PARAMS
+    want = {"sync_ops": 1, "payload_bytes": 4 * n,
+            "wire_bytes": n + 4 * -(-n // ANALYSIS_INT8_BLOCK)}
+    rec["train"] = {"events": events, "wire_payload_bytes": wire,
+                    "clean": clean, "prediction": want,
+                    "losses": [h["loss"] for h in history],
+                    "wall_s": time.perf_counter() - t0}
+    for key, (ops, expected, dtypes, payload) in sorted(events.items()):
+        print(f"analysis train --audit qwen2-0.5b {key}: {ops} op(s) "
+              f"(expected {expected}; predicted {want['sync_ops']}), "
+              f"dtypes {dtypes}, payload {payload} B a worker (predicted "
+              f"{want['payload_bytes']}); {card}", flush=True)
+    print(f"analysis train --audit qwen2-0.5b: WireStats payload {wire} B a "
+          f"worker (predicted {want['wire_bytes']}), findings "
+          f"{'none' if clean else 'SOME'}, {rec['train']['wall_s']:.1f} s; "
+          f"{card}", flush=True)
+    check(clean and events and all(ops == expected for ops, expected, _, _
+                                   in events.values())
+          and all(math.isfinite(x) for x in rec["train"]["losses"]),
+          f"analysis train --audit: {rec['train']}")
+
+    # (d) bench_comms's twin with the wall-clock legs on the card
+    t0 = time.perf_counter()
+    kern.reset_launch_counts()
+    twin = bench_comms.run(quick=True, measure=True, wall_clock=True,
+                           device="cuda")
+    note("analysis bench_comms --wall-clock", kern.launch_counts)
+    bounds = bench_comms.check_wall_clock(twin)
+    twin["wall_clock"]["bounds"] = bounds
+    twin["wall_s"] = time.perf_counter() - t0
+    rec["bench_comms"] = twin
+    sim = twin["wall_clock"]["two_level"]["sim"]
+    print("analysis bench_comms steps/s (best of "
+          f"{bench_comms.WALL_REPEATS}): " + ", ".join(
+              f"{k} {v['steps_per_sec_best']!r}" for k, v in sim.items())
+          + f"; {card}", flush=True)
+    print("analysis bench_comms sync latency (us): " + ", ".join(
+        f"{k} {v!r}" for k, v in
+        twin["wall_clock"]["sync_latency_us"].items())
+        + f"; bounds {bounds}; {twin['wall_s']:.1f} s; {card}", flush=True)
+
+    rec["wall_s"] = time.perf_counter() - t_phase
+    print(f"analysis phase: {rec['wall_s']:.1f} s (budget "
+          f"{ANALYSIS_BUDGET_S}); {card}", flush=True)
+    rec["launches"] = {k: v for k, v in launches.items() if v}
+    return rec
+
+
 def profile_phase(torch, kattn):
     """The serving profile (``--profile``); returns its numbers."""
     import dataclasses
@@ -3936,6 +4191,75 @@ def profile_phase(torch, kattn):
     return out
 
 
+# the phases, in the order a run with no --phase takes them
+PHASES = ("kernels", "main_path", "topk_kernel", "topk_sim", "mesh",
+          "attention", "serving", "ssm_kernel", "ssm_forward", "ssm_serving",
+          "moe_encdec", "experiments", "runtime", "obs", "population",
+          "train", "analysis")
+
+
+def parse_args(argv):
+    import argparse
+    ap = argparse.ArgumentParser(
+        prog="chip_smoke.py",
+        description="smoke test of the PyTorch port on one CUDA card")
+    ap.add_argument("--profile", action="store_true",
+                    help="only the serving profile (attention kernel)")
+    ap.add_argument("--phase", default=None, type=lambda v: [
+        p for p in v.split(",") if p],
+        help="run only these phases, comma-separated, of: "
+             + ", ".join(PHASES))
+    args = ap.parse_args(argv)
+    if args.phase is not None:
+        bad = [p for p in args.phase if p not in PHASES]
+        if bad or not args.phase:
+            ap.error(f"--phase: unknown {bad}; the phases are "
+                     f"{', '.join(PHASES)}")
+        args.phase = [p for p in PHASES if p in args.phase]
+    return args
+
+
+def codec_kernel_phases(torch, kern, ref):
+    """The int8 and sign kernel phases, their times printed."""
+    recs = kernel_phase(torch, kern, ref)
+    recs.update(sign_kernel_phase(torch, kern, ref))
+    for name, rec in recs.items():
+        for shape in SHAPES:
+            t = rec[shape]
+            print(f"{name} {shape}: kernel {t['ms']:.5f} ms, plain "
+                  f"{t['plain_ms']:.5f} ms, bound {t['bound_ms']:.5f} ms",
+                  flush=True)
+    return recs
+
+
+def _jsonable(obj):
+    """A phase's record as JSON data: tuple keys as strings."""
+    if isinstance(obj, dict):
+        return {(k if isinstance(k, str) else str(k)): _jsonable(v)
+                for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_jsonable(v) for v in obj]
+    if isinstance(obj, (str, int, float, bool)) or obj is None:
+        return obj
+    return repr(obj)
+
+
+def _analysis_line(rec):
+    """The analysis phase's printed line: each config's budget projection
+    instead of its full report (the file keeps the reports)."""
+    from repro_torch.analysis import SyncPlanReport, entry_from_report
+    out = {k: v for k, v in rec.items()
+           if k not in ("launches", "sim", "mesh")}
+    out["configs"] = {}
+    for d in [v["report"] for v in rec["sim"].values()] \
+            + list(rec["mesh"].values()):
+        out["configs"][d["config"]] = entry_from_report(
+            SyncPlanReport.from_dict(d))
+    out["bench_comms"] = {"wall_clock": rec["bench_comms"]["wall_clock"],
+                          "wall_s": rec["bench_comms"]["wall_s"]}
+    return _jsonable(out)
+
+
 def main() -> int:
     # the train phase's deterministic algorithms need cuBLAS's fixed
     # workspaces, which cuBLAS reads when CUDA starts
@@ -3960,11 +4284,36 @@ def main() -> int:
     # TF32 rule: float32 products and convolutions in full float32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if sys.argv[1:] == ["--profile"]:
+    args = parse_args(sys.argv[1:])
+    if args.profile:
         print(card_line(), flush=True)
         _build.build("flash_attention")
         print(json.dumps({"profile": profile_phase(torch, kattn)}))
         return 0
+    phases = {
+        "kernels": lambda: codec_kernel_phases(torch, kern, ref),
+        "main_path": lambda: main_path_phase(torch, kern, ref),
+        "topk_kernel": lambda: topk_kernel_phase(torch, kern, ref),
+        "topk_sim": lambda: topk_sim_phase(torch),
+        "mesh": lambda: mesh_phase(torch),
+        "attention": lambda: attention_kernel_phase(torch, kattn, ref),
+        "serving": lambda: serving_phase(torch, kern, kattn, ref),
+        "ssm_kernel": lambda: ssm_kernel_phase(torch, kssd, krg, ref),
+        "ssm_forward": lambda: ssm_forward_phase(torch, kern, kattn, kssd,
+                                                 krg, ref),
+        "ssm_serving": lambda: ssm_serving_phase(torch, kern, kattn, kssd,
+                                                 krg, ref),
+        "moe_encdec": lambda: moe_encdec_phase(torch, kern, kattn, ref),
+        "experiments": lambda: experiments_phase(torch,
+                                                 (kern, kattn, kssd, krg)),
+        "runtime": lambda: runtime_phase(torch, kern, ref),
+        "obs": lambda: obs_phase(torch, kern, ref),
+        "population": lambda: population_phase(torch, kern, ref),
+        "train": lambda: train_phase(torch, kern, ref),
+        "analysis": lambda: analysis_phase(torch, kern, ref),
+    }
+    assert tuple(phases) == PHASES
+    chosen = PHASES if args.phase is None else args.phase
     try:
         print(card_line(), flush=True)
         t0 = time.perf_counter()
@@ -3994,35 +4343,38 @@ def main() -> int:
               and sass["ssd_scan"]["UTMALDG"] == 0,
               "ssd_scan's library has no HMMA (mma.sync), or HGMMA or "
               "UTMALDG")
-        recs = kernel_phase(torch, kern, ref)
-        recs.update(sign_kernel_phase(torch, kern, ref))
-        for name, rec in recs.items():
-            for shape in SHAPES:
-                t = rec[shape]
-                print(f"{name} {shape}: kernel {t['ms']:.5f} ms, plain "
-                      f"{t['plain_ms']:.5f} ms, bound {t['bound_ms']:.5f} ms",
-                      flush=True)
-        launches = main_path_phase(torch, kern, ref)
-        topk = topk_kernel_phase(torch, kern, ref)
-        topk_sim = topk_sim_phase(torch)
-        mesh = mesh_phase(torch)
-        attn = attention_kernel_phase(torch, kattn, ref)
-        served = serving_phase(torch, kern, kattn, ref)
-        ssm = ssm_kernel_phase(torch, kssd, krg, ref)
-        ssm_fwd = ssm_forward_phase(torch, kern, kattn, kssd, krg, ref)
-        ssm_served = ssm_serving_phase(torch, kern, kattn, kssd, krg, ref)
-        moe_encdec = moe_encdec_phase(torch, kern, kattn, ref)
-        experiments = experiments_phase(torch, (kern, kattn, kssd, krg))
-        runtime = runtime_phase(torch, kern, ref)
-        obs = obs_phase(torch, kern, ref)
-        population = population_phase(torch, kern, ref)
-        trained = train_phase(torch, kern, ref)
-        for phase in (mesh, runtime, obs, population, trained):
-            for name, by_run in phase["launches"].items():
-                launches[name].update(by_run)
+        res = {}
+        for name in chosen:
+            t0 = time.perf_counter()
+            res[name] = phases[name]()
+            print(f"phase {name}: {time.perf_counter() - t0:.1f} s",
+                  flush=True)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    if args.phase is not None:
+        # the named phases' records only: the kernels line needs them all
+        records = [{name: _jsonable(res[name])} for name in chosen]
+        (out_dir / "chip_smoke_phases.json").write_text(
+            json.dumps({"card": card_line(), "records": records}, indent=1))
+        for rec in records:
+            print(json.dumps(rec))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+    recs, launches = res["kernels"], res["main_path"]
+    topk, topk_sim, mesh = res["topk_kernel"], res["topk_sim"], res["mesh"]
+    attn, served, ssm = res["attention"], res["serving"], res["ssm_kernel"]
+    ssm_fwd, ssm_served = res["ssm_forward"], res["ssm_serving"]
+    moe_encdec, experiments = res["moe_encdec"], res["experiments"]
+    runtime, obs, population = res["runtime"], res["obs"], res["population"]
+    trained, analysis = res["train"], res["analysis"]
+    for phase in (mesh, runtime, obs, population, trained, analysis):
+        for name, by_run in phase["launches"].items():
+            launches[name].update(by_run)
     kernels = []
     for name, source, replaces in (
             ("int8_quantize", "int8_codec", 68),
@@ -4126,10 +4478,9 @@ def main() -> int:
         {"population": {k: v for k, v in population.items()
                         if k != "launches"}},
         {"train": {k: v for k, v in trained.items() if k != "launches"}},
+        {"analysis": _analysis_line(analysis)},
         {"kernels": kernels}]
     # the whole record also in a file: the lines outgrow a terminal's tail
-    out_dir = ROOT / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(
         json.dumps({"card": card_line(), "records": records}, indent=1))
     for rec in records:

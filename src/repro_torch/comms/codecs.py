@@ -19,6 +19,7 @@ from typing import Dict, Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 
+from repro_torch import marks
 from repro_torch.comms.wire import WireArray, dtype_name
 from repro_torch.core.aggregators import denominator_floor
 from repro_torch.device import recip_f32
@@ -76,6 +77,13 @@ class Compressor(abc.ABC):
         raise NotImplementedError(
             f"{type(self).__name__} has no compressed-collective form")
 
+    def lowered_sync_ops(self, backend: str) -> Optional[int]:
+        """How many counted aggregation ops ONE :meth:`reduce` call runs
+        per payload buffer — in-array f32/i32 reduces under ``"sim"``,
+        ``MeshAxes`` collectives under ``"mesh"`` (the R1 prediction, the
+        reference's numbers).  None when no exact count exists."""
+        return None
+
     def __repr__(self):
         return f"{type(self).__name__}()"
 
@@ -109,6 +117,9 @@ class IdentityCompressor(Compressor):
 
     def reduce(self, x, ops):
         return ops.mean(x)
+
+    def lowered_sync_ops(self, backend):
+        return 1
 
     def wire_spec(self, length, dtype):
         return (WireArray("value", (length,), dtype_name(dtype)),)
@@ -155,6 +166,12 @@ class Int8Compressor(Compressor):
         y = _div_count(y, ops.count())
         return y.reshape(x.shape).to(x.dtype)
 
+    def lowered_sync_ops(self, backend):
+        # mesh: pmax on the scales + psum on the int32 payload; sim: the
+        # block amax's group max is not a counted aggregation reduce,
+        # leaving only the int32 worker-axis sum
+        return 2 if backend == "mesh" else 1
+
     def wire_spec(self, length, dtype):
         nb = -(-length // self.block)
         return (WireArray("q", (length,), "int8"),
@@ -167,11 +184,14 @@ class Int8Compressor(Compressor):
 def _member_sum(v: torch.Tensor) -> torch.Tensor:
     """Sum over the member axis (-2) one member after the other, the order
     XLA's reduce takes; ``torch.sum`` takes another for some group sizes
-    (6, 8), and another on the card than on the CPU."""
-    out = v[..., 0, :]
-    for i in range(1, v.shape[-2]):
-        out = out + v[..., i, :]
-    return out
+    (6, 8), and another on the card than on the CPU.  One reduce for the
+    analysis layer (:func:`repro_torch.marks.reduce`), as the reference's
+    one ``reduce_sum``."""
+    with marks.reduce("member_sum", v):
+        out = v[..., 0, :]
+        for i in range(1, v.shape[-2]):
+            out = out + v[..., i, :]
+        return out
 
 
 class SignCompressor(Compressor):
@@ -234,6 +254,11 @@ class SignCompressor(Compressor):
 
         out = ops.gathered(fuse, bits, scale)
         return out.reshape(x.shape).to(x.dtype)
+
+    def lowered_sync_ops(self, backend):
+        # mesh: all_gather of bits + all_gather of scales; sim: the int32
+        # vote sum + the f32 scale sum over the member axis
+        return 2
 
     def wire_spec(self, length, dtype):
         # the kernel pads the bits to whole blocks, but only ceil(length/8)
@@ -302,6 +327,11 @@ class TopKCompressor(Compressor):
         if residual is None:
             return out
         return out, u - sent.to(u.dtype)
+
+    def lowered_sync_ops(self, backend):
+        # mesh: all_gather of values + all_gather of indices (the fused
+        # decode-reduce is the kernel's); sim: one dense f32 group mean
+        return 2 if backend == "mesh" else 1
 
     def wire_spec(self, length, dtype):
         k = self._k(length)

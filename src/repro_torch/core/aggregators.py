@@ -24,6 +24,7 @@ from typing import Dict, Optional, Union
 import numpy as np
 import torch
 
+from repro_torch import marks
 from repro_torch.device import recip_f32
 
 
@@ -185,15 +186,18 @@ def _sum_in(v: torch.Tensor, axes, acc: torch.dtype) -> torch.Tensor:
     A float32 sum is ``torch.sum``.  A narrower ``acc`` (bf16, f16) is
     rounded to ``acc`` after every add, one slice after the other in the
     row-major order of ``axes``: that is how XLA reduces in such a type,
-    while ``torch.sum`` would accumulate in float32 and round once."""
+    while ``torch.sum`` would accumulate in float32 and round once.  Either
+    way one reduce for the analysis layer (:func:`repro_torch.marks.
+    reduce`)."""
     if acc == torch.float32:
         return v.sum(dim=axes, keepdim=True, dtype=acc)
     keep = [d for d in range(v.ndim) if d not in axes]
-    slices = v.to(acc).permute(list(axes) + keep).reshape(
-        (-1,) + tuple(v.shape[d] for d in keep))
-    out = torch.zeros(slices.shape[1:], dtype=acc, device=v.device)
-    for piece in slices:
-        out = out + piece
+    with marks.reduce("sum_in", v, dtype=acc):
+        slices = v.to(acc).permute(list(axes) + keep).reshape(
+            (-1,) + tuple(v.shape[d] for d in keep))
+        out = torch.zeros(slices.shape[1:], dtype=acc, device=v.device)
+        for piece in slices:
+            out = out + piece
     return out.reshape([1 if d in axes else v.shape[d]
                         for d in range(v.ndim)])
 

@@ -49,6 +49,8 @@ class Executor(abc.ABC):
         self.plan = None
         self._step_fns: Dict[Any, Any] = {}
         self._round_fns: Dict[Any, Any] = {}
+        # builds of each round body: R4's counterpart of a jit cache size
+        self._round_builds: Dict[Any, int] = {}
 
     def bind(self, plan) -> "Executor":
         """Attach to an :class:`~repro_torch.core.hsgd.HSGD` plan.  One
@@ -90,7 +92,48 @@ class Executor(abc.ABC):
         key = (rnd, masked)
         if key not in self._round_fns:
             self._round_fns[key] = self._build_round(rnd, masked)
+            self._round_builds[key] = self._round_builds.get(key, 0) + 1
         return self._round_fns[key]
+
+    def round_builds(self, rnd: Round, masked: bool = False) -> int:
+        """How many times the body of this Round signature was built (rule
+        R4: once, however many rounds ``run_rounds`` dispatched)."""
+        return self._round_builds.get((rnd, masked), 0)
+
+    # -- the analysis layer's surface (repro_torch.analysis) -----------------
+    def sync_fn(self, event: SyncEvent):
+        """The aggregation subprogram one sync event runs in every round
+        body: ``(params, opt_state, cstate, mask=None) -> (params,
+        opt_state, cstate)``, the same :meth:`_apply_event` the round
+        calls, exposed alone so that the analysis layer can record WHAT an
+        event ships without the local updates around it."""
+        def sync(params, opt_state, cstate, mask=None):
+            return self._apply_event(params, opt_state, cstate, event,
+                                     mask=mask)
+        return sync
+
+    def sync_program(self, event: SyncEvent, state: HSGDState, mask=None):
+        """The recorder's summary of one :meth:`sync_fn` call on a copy of
+        ``state``'s params, opt state and residuals (rules R1/R2/R5)."""
+        from repro_torch.analysis.walker import trace
+        return trace(self.sync_fn(event), state.params, state.opt_state,
+                     state.comms, mask=mask)
+
+    def round_program(self, rnd: Round, state: HSGDState, batches,
+                      mask=None):
+        """The recorder's summary of one call of the cached round body
+        ``run_rounds`` dispatches for this Round, on a copy of ``state``
+        and of the batches moved to the state's device (rules R3/R4 and
+        the per-round collective count).  One unrecorded call runs first:
+        what a body builds once and caches (the probes' grouping
+        constants) is its warm-up, as compilation is the reference's."""
+        import copy
+        from repro_torch.analysis.walker import trace
+        fn = self.round_fn(rnd, masked=mask is not None)
+        batches = tuple(self.plan._on_device(b, state) for b in batches)
+        args = (state, batches) if mask is None else (state, batches, mask)
+        fn(*copy.deepcopy(args))
+        return trace(fn, *args)
 
     # -- the backend's hooks ----------------------------------------------
     @abc.abstractmethod

@@ -702,12 +702,21 @@ class HSGD:
             n_elements += n
         return WireStats(self.topology, tuple(payload), n_elements)
 
-    def audit(self, state: HSGDState, batch_fn=None, **kwargs):
-        """The reference's static audit walks jaxprs; its port is ROADMAP
-        A11."""
-        raise NotImplementedError(
-            "HSGD.audit is not ported yet (ROADMAP A11: the analysis layer "
-            "walks compiled graphs)")
+    def audit(self, state: HSGDState, batch_fn: Optional[Callable] = None,
+              *, T: Optional[int] = None, config: str = "", waivers=(),
+              run: bool = True):
+        """Audit of this engine's sync plan
+        (:func:`repro_torch.analysis.audit_engine`): records every distinct
+        SyncEvent's aggregation subprogram — and, with ``batch_fn``, every
+        distinct Round's body — over one global period (or ``T`` steps),
+        each once on a copy of ``state`` on its device, and lints the
+        result (rules R1–R6, :mod:`repro_torch.analysis.rules`).
+        ``run=False`` skips the ``run_rounds`` pass (rebuild detection then
+        has no build counts).  Returns a
+        :class:`~repro_torch.analysis.SyncPlanReport`."""
+        from repro_torch.analysis import audit_engine
+        return audit_engine(self, state, batch_fn, T=T, config=config,
+                            waivers=waivers, run=run)
 
     def _payload_nbytes(self, state: HSGDState) -> int:
         """Per-worker bytes ONE sync payload puts on the wire, which the

@@ -1,5 +1,6 @@
-"""Observability overhead benchmark, timed leg (counterpart of the JAX
-package's ``benchmarks/bench_obs.py``, sim executor only).
+"""Observability overhead benchmark (counterpart of the JAX package's
+``benchmarks/bench_obs.py``): the timed leg on the sim executor, and the
+static leg on the sim and the mesh.
 
 The in-round divergence and grad-norm probes (``repro_torch.obs``) promise
 to be cheap enough to leave on.  This benchmark times the schedule-compiled
@@ -12,10 +13,12 @@ machine state; the best one discards repeats that landed in a slow phase
 of a shared host).  The world is the reference's: an MLP 64-256-8, batch
 ``BATCH`` per worker, inner syncs every 8 steps.
 
-The reference's static leg (``probe_op_leg``: extra ops per round of the
-metrics-on round body against ``Metrics.op_budget``, counted in jaxprs)
-waits for the port's analysis layer, ROADMAP A11; the budget is reported
-beside the timed leg, not checked.
+The static leg (:func:`probe_op_leg`, the reference's) audits the
+metrics-on engine (:mod:`repro_torch.analysis`) against its metrics-off
+twin and asserts the probe's contract: zero extra host reads and
+transfers per round body, and at most ``Metrics.op_budget`` extra
+aggregation ops.  It runs on the sim executor in this process and on the
+mesh executor in one launch of eight ``gloo`` ranks per topology.
 
 Writes ``build/BENCH_obs_torch.json`` (the reference's ``BENCH_obs.json``
 is its own record and is refused as an output name).
@@ -31,14 +34,14 @@ from typing import Dict
 
 import torch
 
-from repro_torch.core import HierarchySpec, make_topology
+from repro_torch.core import EngineConfig, HSGD, HierarchySpec, make_topology
 from repro_torch.data import (FederatedDataset, label_shard_partition,
                               make_classification)
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.experiments.common import steps_per_sec
 from repro_torch.models import SimpleConfig, SimpleModel
-from repro_torch.obs import SCHEMA_VERSION, Metrics
-from repro_torch.tree import tree_leaves
+from repro_torch.obs import SCHEMA_VERSION
+from repro_torch.optim import sgd
 
 TOPOLOGIES = {
     "two_level": HierarchySpec((2, 4), (32, 8)),
@@ -54,6 +57,8 @@ MIN_RATIO = 0.95
 # probes; the inner sync every 8 steps amortizes the divergence row
 BATCH = 512
 DIM, HIDDEN, CLASSES = 64, 256, 8
+# the static leg audits both executors (the mesh as eight gloo ranks)
+BACKENDS = ("sim", "mesh")
 OUT = "build/BENCH_obs_torch.json"
 REFERENCE_FILE = "BENCH_obs.json"
 
@@ -69,11 +74,59 @@ def make_obs_world(n_workers: int = 8, seed: int = 3):
     return ds, model
 
 
+def probe_block(spec: HierarchySpec, backend: str, device: str) -> Dict:
+    """The ``probes`` block of the metrics-on engine's audit on
+    ``backend``, its contract asserted (see :func:`probe_op_leg`)."""
+    topo = make_topology("uniform", spec=spec)
+    model = SimpleModel(SimpleConfig(kind="mlp", input_dim=16, hidden=8,
+                                     num_classes=4))
+    eng = HSGD(model.loss, sgd(0.08), topo,
+               EngineConfig(executor=backend, metrics="on"))
+    state = eng.init(torch.Generator().manual_seed(0), model.init,
+                     device=device)
+    n = topo.n
+
+    def batch_fn(t):
+        x = torch.randn((n, 4, 16), generator=torch.Generator()
+                        .manual_seed(t))
+        return {"x": x, "y": torch.zeros((n, 4), dtype=torch.int32)}
+
+    report = eng.audit(state, batch_fn=batch_fn, run=False)
+    probes = report.probes
+    assert probes is not None
+    for key, d in probes["rounds"].items():
+        assert d["extra_callbacks"] == 0 and d["extra_transfers"] == 0, \
+            (key, d)
+        assert d["extra_ops"] <= probes["budget"], (key, d, probes["budget"])
+    return probes
+
+
+def _probes_rank(rank: int, spec: HierarchySpec, device: str):
+    probes = probe_block(spec, "mesh", device)
+    return probes if rank == 0 else None
+
+
+def probe_op_leg(spec: HierarchySpec, backend: str,
+                 device: DeviceLike = "cuda") -> Dict:
+    """Static leg: audit the metrics-on engine and return its ``probes``
+    block (extra ops / host reads / transfers per round vs the
+    metrics-off twin), asserting the op budget and the zero-host-cost
+    contract.  ``backend="mesh"`` runs it on one ``gloo`` rank per
+    worker."""
+    dev = str(resolve_device(device))
+    if backend == "mesh":
+        from repro_torch.launch.mesh import launch
+        return launch(_probes_rank, spec.n_workers, backend="gloo",
+                      device=dev, args=(spec, dev))
+    return probe_block(spec, backend, dev)
+
+
 def bench_topology(ds, model, spec: HierarchySpec, T: int,
-                   device: DeviceLike = "cuda") -> Dict:
+                   device: DeviceLike = "cuda",
+                   backends=BACKENDS) -> Dict:
     """Off/on steps/s of ``REPEATS`` same-repeat pairs on the sim
-    executor, unrounded, with the per-pair ratios and the reference's op
-    budget for the metrics-on round body (recorded, not checked)."""
+    executor, unrounded, with the per-pair ratios, and the static leg's
+    ``probes`` block per audited backend."""
     runs = {"off": [], "on": []}
     for rep in range(REPEATS):
         for name, metrics in (("off", None), ("on", "on")):
@@ -85,9 +138,6 @@ def bench_topology(ds, model, spec: HierarchySpec, T: int,
         print(f"... rep {rep}: off={runs['off'][-1]!r} "
               f"on={runs['on'][-1]!r} steps/s", flush=True)
     pairs = [on / off for on, off in zip(runs["on"], runs["off"])]
-    topo = make_topology("uniform", spec=spec)
-    n_leaves = len(tree_leaves(model.init(torch.Generator().manual_seed(0),
-                                          device="cpu")))
     return {
         "off": {"steps_per_sec_best": max(runs["off"]),
                 "steps_per_sec_all": runs["off"]},
@@ -95,21 +145,26 @@ def bench_topology(ds, model, spec: HierarchySpec, T: int,
                "steps_per_sec_all": runs["on"]},
         "ratio_best_pair": max(pairs),
         "ratio_all": pairs,
-        "op_budget_sim": Metrics().op_budget("sim", topo, n_leaves),
+        "probes": {b: probe_op_leg(spec, b, device) for b in backends},
     }
 
 
-def run(quick: bool = True, device: DeviceLike = "cuda") -> Dict:
-    """The timed leg over both topologies; the report, nothing asserted."""
+def run(quick: bool = True, device: DeviceLike = "cuda",
+        backends=BACKENDS) -> Dict:
+    """Both legs over both topologies: the report, with the static leg's
+    contract asserted (the timed leg's bound is :func:`main`'s)."""
     dev = resolve_device(device)
     ds, model = make_obs_world(n_workers=8)
     T = 64 if quick else 256
     report = {"schema_version": SCHEMA_VERSION, "steps": T,
               "repeats": REPEATS, "timed_backend": "sim",
+              "audited_backends": list(backends),
               "device": str(dev), "min_ratio": MIN_RATIO, "topologies": {}}
     for tname, spec in TOPOLOGIES.items():
-        print(f"... {tname} (timed: sim on {dev})", flush=True)
-        report["topologies"][tname] = bench_topology(ds, model, spec, T, dev)
+        print(f"... {tname} (timed: sim on {dev}; audited: "
+              f"{'+'.join(backends)})", flush=True)
+        report["topologies"][tname] = bench_topology(ds, model, spec, T, dev,
+                                                     backends)
     return report
 
 

@@ -22,10 +22,12 @@ format: callers pass their codec's block, nothing shrinks it.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Tuple
 
 import torch
 
+from repro_torch import marks
 from repro_torch.kernels import ref
 
 # the largest sign block: its power-of-two padding (4 bytes an element)
@@ -83,6 +85,19 @@ def _check_sign_block(name: str, block: int) -> int:
     return block
 
 
+def _marked(fn):
+    """A wrapper call is one kernel region for the analysis layer's
+    recorder (:func:`repro_torch.marks.kernel`): the plain version's ops
+    on the CPU are the kernel's inside, as the card's are."""
+    name = fn.__name__
+
+    @functools.wraps(fn)
+    def call(*args, **kwargs):
+        with marks.kernel(name):
+            return fn(*args, **kwargs)
+    return call
+
+
 def _launch(name: str, source: str, entry: str, device: torch.device,
             *args) -> None:
     from repro_torch.kernels._build import load
@@ -96,6 +111,7 @@ def _launch(name: str, source: str, entry: str, device: torch.device,
     launch_counts[name] += 1
 
 
+@_marked
 def int8_quantize(x: torch.Tensor, *, block: int = 256
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x f32 (R, C) -> (q int8 (R, C), scale f32 (R, ceil(C/block)))."""
@@ -115,6 +131,7 @@ def int8_quantize(x: torch.Tensor, *, block: int = 256
     return q, scale
 
 
+@_marked
 def int8_dequantize(q: torch.Tensor, scale: torch.Tensor, *,
                     block: int = 256) -> torch.Tensor:
     """(q int8 (R, C), scale f32 (R, ceil(C/block))) -> x f32 (R, C)."""
@@ -133,6 +150,7 @@ def int8_dequantize(q: torch.Tensor, scale: torch.Tensor, *,
     return y
 
 
+@_marked
 def int8_scale_quantize(x: torch.Tensor, scale: torch.Tensor, *,
                         block: int = 256) -> torch.Tensor:
     """(x f32 (R, C), scale f32 (R, ceil(C/block))) -> q int8 (R, C),
@@ -152,6 +170,7 @@ def int8_scale_quantize(x: torch.Tensor, scale: torch.Tensor, *,
     return q
 
 
+@_marked
 def sign_pack(x: torch.Tensor, *, block: int = 1024
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x f32 (R, C) -> (bits uint8 (R, nb*block/8), scale f32 (R, nb)),
@@ -172,6 +191,7 @@ def sign_pack(x: torch.Tensor, *, block: int = 1024
     return bits, scale
 
 
+@_marked
 def sign_unpack(bits: torch.Tensor, scale: torch.Tensor, *, size: int,
                 block: int = 1024) -> torch.Tensor:
     """(bits uint8 (R, nb*block/8), scale f32 (R, nb)) -> x f32 (R, size):
@@ -243,6 +263,7 @@ def topk_plan(m: int, k: int, size: int) -> Dict[str, int]:
     return plan
 
 
+@_marked
 def topk_decode_reduce(vals: torch.Tensor, idx: torch.Tensor, *, size: int,
                        block: int = 256) -> torch.Tensor:
     """(vals f32 (M, K), idx int32 (M, K)) -> f32 (size,): the M payloads

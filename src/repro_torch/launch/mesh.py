@@ -14,6 +14,8 @@ Collectives cross the host.  With the ``gloo`` backend, which is the route
 this package exercises, every collective copies its operand to the host,
 runs there and copies the result back to the operand's device, so any
 number of ranks may share one CUDA card; ``nccl`` needs a card per rank.
+Each collective is one mark for the analysis layer's recorder
+(:func:`repro_torch.marks.collective`), its host staging included.
 
 :func:`launch` starts the ranks: ``launch(fn, n_workers, backend="gloo",
 device="cuda", args=(...))`` spawns one process per worker, joins them in a
@@ -35,6 +37,8 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+
+from repro_torch import marks
 
 # replica-axis names per hierarchy depth, level 1 (global) first; deeper
 # hierarchies take generic lvl<ℓ> names
@@ -61,9 +65,11 @@ class MeshAxes:
     def _reduce(self, t: torch.Tensor, op) -> torch.Tensor:
         if not self.names:
             return t
-        host = t.detach().to("cpu", copy=True).contiguous()
-        dist.all_reduce(host, op=op, group=self.group)
-        return host.to(t.device)
+        name = "psum" if op == dist.ReduceOp.SUM else "pmax"
+        with marks.collective(name, self.names, t):
+            host = t.detach().to("cpu", copy=True).contiguous()
+            dist.all_reduce(host, op=op, group=self.group)
+            return host.to(t.device)
 
     def psum(self, t: torch.Tensor) -> torch.Tensor:
         """Sum over the group, in ``t``'s dtype (int32 stays int32)."""
@@ -76,10 +82,11 @@ class MeshAxes:
         """The members' ``t`` concatenated along axis 0, in rank order."""
         if not self.names:
             return t
-        host = t.detach().to("cpu").contiguous()
-        parts = [torch.empty_like(host) for _ in range(self.size)]
-        dist.all_gather(parts, host, group=self.group)
-        return torch.cat(parts, dim=0).to(t.device)
+        with marks.collective("all_gather", self.names, t):
+            host = t.detach().to("cpu").contiguous()
+            parts = [torch.empty_like(host) for _ in range(self.size)]
+            dist.all_gather(parts, host, group=self.group)
+            return torch.cat(parts, dim=0).to(t.device)
 
 
 class HSGDMesh:

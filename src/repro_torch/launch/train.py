@@ -25,7 +25,8 @@ divergences in the round body (:mod:`repro_torch.obs`), ``--trace``
 exports the run as Chrome-trace JSON, and ``--population`` switches to
 sampled participation from a virtual-client population
 (:meth:`HSGD.run_sampled`; --steps must then be a multiple of G).
-``--audit`` raises: the analysis layer is not ported (ROADMAP A11).
+``--audit`` prints the collective audit of the sync plan
+(:mod:`repro_torch.analysis`, sync subprograms only).
 
 The initial params come from :func:`init_params` and the batches from
 :func:`make_stream` / :func:`make_client_batches`: the JAX package draws
@@ -158,8 +159,10 @@ def build_argparser():
         "observability",
         "telemetry, probes, tracing, audits (EngineConfig.metrics)")
     g.add_argument("--audit", action="store_true",
-                   help="the collective audit of the sync plan; not "
-                        "ported (ROADMAP A11), so the flag raises")
+                   help="print the repro_torch.analysis collective audit of "
+                        "the sync plan (per-event sync ops, wire dtypes, "
+                        "payload bytes, lint findings) before training "
+                        "starts")
     g.add_argument("--probes", action="store_true",
                    help="in-round observability (repro_torch.obs): "
                         "per-level parameter divergences at every sync "
@@ -242,9 +245,11 @@ def _run_sampled(args, eng, model, cfg, spec, dev, rank: int):
     server = eng.init_server_from_params(init_params(model, args.seed, dev),
                                          device=dev)
     if args.audit:
-        # raises NotImplementedError until the analysis layer is ported
-        eng.population_engine().audit(
+        # every rank audits (the mesh's collectives need them all)
+        report = eng.population_engine().audit(
             server, config=f"{args.backend}/{args.arch}/pop")
+        if rank == 0:
+            print(report.summary())
     batch_fn = make_client_batches(args, cfg.vocab_size, dev)
     t0 = time.time()
     server, hist = eng.run_sampled(server, batch_fn, args.steps // G)
@@ -374,7 +379,8 @@ def main(argv=None, device: DeviceLike = "cuda"):
     state = eng.init_from_params(init_params(model, args.seed, dev),
                                  device=dev)
     if args.audit:
-        # raises NotImplementedError until the analysis layer is ported
+        # sync-subprogram audit only (no batch_fn): fast, and enough for
+        # the sync-op, dtype and byte rules
         say(eng.audit(state, config=f"{args.backend}/{args.arch}").summary())
     if comms is not None:
         # static per-level wire accounting: what each sync event moves

@@ -195,9 +195,10 @@ class Metrics:
     # -- the overhead contract ----------------------------------------------
     def op_budget(self, backend: str, topology, n_param_leaves: int) -> int:
         """Max extra aggregation/probe ops a metrics-on round body may add
-        vs its metrics-off twin, as the reference counts them in a jaxpr
-        (rule R6, copied unchanged; the port has no audit engine yet,
-        ROADMAP A11, so the number is recorded, not enforced).
+        vs its metrics-off twin (rule R6; the reference's formula, copied
+        unchanged).  The audit (:mod:`repro_torch.analysis`) enforces it
+        on the ops its recorder counts: reduces on the sim, ``MeshAxes``
+        collectives on the mesh.
 
         mesh: the divergence probe is exactly L+2 collectives per sync
         (L internal levels) and the ``grad_norm`` channel one extra metric

@@ -310,7 +310,12 @@ class PopulationEngine:
 
     # -- analysis ------------------------------------------------------------
     def audit(self, server: ServerState, batch_fn=None, **kwargs):
-        """The reference's audit walks jaxprs; its port is ROADMAP A11."""
-        raise NotImplementedError(
-            "PopulationEngine.audit is not ported yet (ROADMAP A11: the "
-            "analysis layer walks compiled graphs)")
+        """Audit the sampled round body (the inner engine over one sampling
+        round): R1–R6 on exactly the program :meth:`run` dispatches, with
+        the clients of round ``server.round``'s draw hydrated."""
+        wrapped = None
+        if batch_fn is not None:
+            draw = self.sampler.draw(server.round)
+            wrapped = lambda t: batch_fn(draw.client_ids, t)
+        kwargs.setdefault("T", self.round_steps)
+        return self.inner.audit(self.hydrate(server), wrapped, **kwargs)

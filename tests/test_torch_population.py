@@ -12,7 +12,8 @@ and the ``participation`` channel and ``wire_bytes`` exactly.  Inside the
 port: with k == population the sampled loop is bit for bit row 0 of the
 materialized engine (sgd and adam), the weighted and nonzero folds match
 a float64 host oracle, and a 10^6-client population keeps the state
-bounded by k.  Refusals: the audits (ROADMAP A11).  In a one-process
+bounded by k.  Both audits (the engine's and the population engine's)
+return clean reports.  In a one-process
 ``gloo`` group the sampled loop runs on the mesh bit for bit as on the sim
 (the eight-rank exact population is ``tests/test_torch_mesh_runtime.py``).
 """
@@ -327,11 +328,13 @@ def test_population_refusals():
     eng = _port_engine()
     with pytest.raises(ValueError, match="no population bound"):
         eng.init_server(torch.Generator().manual_seed(0), None, device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
-        eng.audit(None)
+    state = eng.init_from_params(params_from_numpy(P0, device="cpu"),
+                                 device="cpu")
+    rep = eng.audit(state)
+    assert rep.events and rep.unwaived == ()
     eng = _port_engine(population=(100, 100))
-    with pytest.raises(NotImplementedError, match="A11"):
-        eng.population_engine().audit(_server(eng))
+    rep = eng.population_engine().audit(_server(eng))
+    assert rep.events and rep.unwaived == ()
     pm = SimpleModel(SimpleConfig(**MODEL))
     with pytest.raises(TypeError, match="UniformTopology"):
         P.HSGD(pm.loss, sgd(0.1), P.GroupedTopology(

@@ -17,8 +17,9 @@
   lands on its records and step-16 params; the port's own resume is bit
   for bit its uninterrupted run (the reference's launch.train smoke,
   ``tests/test_system.py:80``, mirrored).
-* ``ap.error`` cases give the reference's messages; ``--audit`` raises
-  naming A11.
+* ``ap.error`` cases give the reference's messages; ``--audit`` prints
+  a clean audit of the sync plan (the analysis layer is
+  ``tests/test_torch_audit.py``'s).
 
 ``tests/test_torch_train_codecs.py`` holds int8 and sign,
 ``tests/test_torch_train_paths.py`` the runtime, probes, population and
@@ -482,6 +483,10 @@ def test_flag_errors_match_reference(case, capsys):
     assert "error: " in want
 
 
-def test_audit_raises_naming_a11():
-    with pytest.raises(NotImplementedError, match="A11"):
-        ptrain.main(SMOKE + ["--steps", "2", "--audit"], device="cpu")
+def test_audit_raises_naming_a11(capsys):
+    """Since the analysis layer is ported, ``--audit`` no longer raises: it
+    prints the sync plan's audit, clean, before training starts."""
+    ptrain.main(SMOKE + ["--steps", "2", "--audit"], device="cpu")
+    out = capsys.readouterr().out
+    assert f"[sim/{ARCH}] executor=sim" in out
+    assert "findings: none" in out and "FINDING" not in out
