@@ -85,11 +85,11 @@ or of the JAX package.  It
    bit for bit the probes-off run's, every rank's state, rows and draws the
    same, ``int8_scale_quantize`` / ``sign_pack`` launched on every rank
    and ``topk_decode_reduce`` exactly once per wire sync (fresh or
-   posted) on every rank.  Then the twins' mesh legs at full size through
-   their entry points, each in its own launch of eight gloo ranks on the
-   card: ``bench_runtime.matrix(backend="mesh")`` (T=96, every regime's
-   ``elastic_mesh`` and bursty's ``async_mesh``, which the twin holds to
-   its sim arms) and ``bench_population.run(quick=False,
+   posted) on every rank.  Then the twins' mesh legs through their entry
+   points, each in its own launch of eight gloo ranks on the card:
+   ``bench_runtime.matrix(backend="mesh", steps=MESH_TWIN_STEPS)`` (every
+   regime's ``elastic_mesh`` and bursty's ``async_mesh``, which the twin
+   holds to its sim arms) and ``bench_population.run(quick=False,
    backend="mesh")`` (the 10^6-client point, server bit for bit the
    sim's); steps/s of rank 0 beside the sim's printed, not asserted;
 5. attention kernel phase: holds ``flash_attention`` against its plain
@@ -277,14 +277,28 @@ or of the JAX package.  It
    ``benchmarks/bench_comms.py`` with its wall-clock legs on the card:
    the static asserts hold, and the two wall-clock bounds are printed and
    recorded whatever they read;
+15a. roofline phase: the port's cost model (``repro_torch.roofline``)
+   against the card (see the note at ROOFLINE_REPS).  PERF.md's kernel
+   bounds from the kernels' work counts (KERNEL_BOUNDS_MS); qwen2-0.5b's
+   prefill at full width in float32 and bfloat16 (24 ``flash_attention``
+   regions a call, equal to the launch counter), the local, local-sync
+   and global-sync steps of TRAIN_ARGV's training (one
+   ``int8_scale_quantize`` region a sync, equal to the counter) and their
+   amortized period (``combine_train_steps``), and the quickstart world's
+   global int8 round: FLOPs by class, bytes, the three terms, the bound,
+   the measured time (median of ROOFLINE_REPS after a warm-up) and the
+   share, each bound at most its measurement; the reduced training and
+   ``loss`` reports equal card against CPU; the records in
+   ``experiments.roofline_table``'s format written to ROOFLINE_OUT and
+   rendered by it;
 16. writes the records below, with the card's line, to
    ``chiprun_out/chip_smoke.json``, then prints one ``{"ssm": ...}`` JSON
    line with the SSM throughputs, one ``{"moe_encdec": ...}`` line, one
    ``{"topk_sim": ..., "mesh": ...}`` line, one ``{"experiments": ...}``
    line, one ``{"runtime": ...}`` line, one ``{"obs": ...}`` line, one
    ``{"population": ...}`` line, one ``{"train": ...}`` line, one
-   ``{"analysis": ...}`` line, one ``{"kernels": [...]}`` JSON line (all
-   nine kernels), then the result line ``{"ok": true, "device": {...}}``
+   ``{"analysis": ...}`` line, one ``{"roofline": ...}`` line, one
+   ``{"kernels": [...]}`` JSON line (all nine kernels), then the result line ``{"ok": true, "device": {...}}``
    last.
 
 Any failed phase exits non-zero before the result line.
@@ -294,7 +308,8 @@ Any failed phase exits non-zero before the result line.
 builds every kernel and runs only the named phases (comma-separated, in
 the order above: kernels, main_path, topk_kernel, topk_sim, mesh,
 attention, serving, ssm_kernel, ssm_forward, ssm_serving, moe_encdec,
-experiments, runtime, obs, population, train, analysis), writes their
+experiments, runtime, obs, population, train, analysis, roofline),
+writes their
 records to ``chiprun_out/chip_smoke_phases.json``, prints one JSON line
 per phase and the result line last.  The ``kernels`` line needs every
 phase, so it is printed only by a run without ``--phase``.
@@ -320,6 +335,11 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+# the card's rates: one definition, the port's cost model's
+from repro_torch.roofline.analysis import HW, work_bound  # noqa: E402
+
+H100 = HW()
 SOURCES = ("int8_codec", "sign_codec", "flash_attention", "ssd_scan",
            "rglru_scan", "topk_reduce")
 BLOCK = 256
@@ -328,14 +348,14 @@ SIGN_BLOCK = 1024
 # (shape, block) of the sign kernel checks; the first two are timed
 SIGN_CASES = (((8, 2120), SIGN_BLOCK), ((8, 2**24 + 77), SIGN_BLOCK),
               ((8, 2120), 64), ((8, 2120), 1000), ((8, 2120), 24))
-HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory
-F32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+HBM_BYTES_PER_S = H100.hbm_bw
+F32_OPS_PER_S = H100.f32_flops
 # the float32 attention kernel's tensor-core operations per visible pair
 # (six bf16 plane products each for Q.K^T and P.V) and its split
 # pre-pass's bytes per element of q, k and v (read 4, write 6)
 F32_SPLIT_OPS_PER_D = 24
 F32_SPLIT_BYTES = 10
-BF16_OPS_PER_S = 989e12      # H100 SXM bf16 tensor cores, dense
+BF16_OPS_PER_S = H100.peak_flops
 # flash attention cases: (B, Sq, Sk, Hq, Hk, D, dtype, causal, window);
 # (a), (b), (c) and (d), the first ATTN_TIMED, are timed
 ATTN_CASES = (
@@ -474,6 +494,11 @@ MESH_ATOL = 1e-3                 # tests/test_differential.py:247
 # error of ~2.4% for the median of 32 turns, so it takes 64
 DENSE_FORM_TURNS = 64
 DENSE_FORM_MIN_RATIO = 0.95
+# the runtime twin's mesh leg runs cut in depth to pay for the roofline
+# phase: MESH_TWIN_STEPS steps for 96 (the runtime phase runs the full
+# matrix on the sim); every arm and every regime still runs, and each mesh
+# arm is still held to its sim arm
+MESH_TWIN_STEPS = 48
 # exact mode against sim where the two are not bit for bit (ROADMAP C)
 EXACT_FALLBACK_RTOL = 1e-6
 # the experiments phase: the paper's claims (the seven mains of
@@ -640,11 +665,18 @@ def stage_ms(torch, fn, calls: int = 5) -> dict:
 
 
 def bound_ms(n_bytes: int, n_ops: int, ops_per_s: float = F32_OPS_PER_S):
-    """Least time for the work: the larger of bytes over the memory rate
-    and operations over ``ops_per_s`` (default: the float32 rate)."""
+    """Least time for a design's work: the larger of bytes over the memory
+    rate and operations over ``ops_per_s`` (default: the float32 rate)."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / ops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def work_ms(work):
+    """Least time for a kernel's function (its ``*_work`` count): ms and
+    what bounds it, "bytes" or "operations"."""
+    s, by = work_bound(work, H100)
+    return s * 1e3, by
 
 
 SASS_KEYS = ("HGMMA", "HMMA", "UTMALDG", "global float atomics",
@@ -727,24 +759,23 @@ def kernel_phase(torch, kern, ref):
         check(int(g_k[-2].abs().max()) == 127,
               "the saturating row did not reach +-127")
 
-        n, s = r * c, r * nb
-        work = {   # (kernel call, plain call, bytes moved, f32 operations)
+        work = {   # (kernel call, plain call, the function's work)
             "int8_quantize": (
                 lambda: kern.int8_quantize(x, block=BLOCK),
                 lambda: ref.int8_ref(x, BLOCK),
-                4 * n + n + 4 * s, 7 * n + 2 * s),
+                kern.int8_quantize_work(r, c, BLOCK)),
             "int8_dequantize": (
                 lambda: kern.int8_dequantize(q_k, s_k, block=BLOCK),
                 lambda: ref.int8_dequant_ref(q_k, s_k, BLOCK),
-                n + 4 * s + 4 * n, 2 * n),
+                kern.int8_dequantize_work(r, c, BLOCK)),
             "int8_scale_quantize": (
                 lambda: kern.int8_scale_quantize(x, group, block=BLOCK),
                 lambda: ref.int8_scale_quant_ref(x, group, BLOCK),
-                4 * n + 4 * s + n, 5 * n + s),
+                kern.int8_scale_quantize_work(r, c, BLOCK)),
         }
-        inner = 50 if n < 1 << 20 else 1
-        for name, (fk, fp, nbytes, nops) in work.items():
-            b_ms, b_by = bound_ms(nbytes, nops)
+        inner = 50 if r * c < 1 << 20 else 1
+        for name, (fk, fp, w) in work.items():
+            b_ms, b_by = work_ms(w)
             rec = recs.setdefault(name, {"max_abs_err": 0.0})
             rec["max_abs_err"] = max(rec["max_abs_err"], float(errs[name]))
             rec[(r, c)] = {"ms": time_ms(torch, fk, inner),
@@ -793,21 +824,20 @@ def sign_kernel_phase(torch, kern, ref):
             float((y - y_p).abs().max()))
         del signs, y_p, b_p, s_p
         if (r, c) in timed and block == SIGN_BLOCK:
-            n, s, nbits = r * c, r * nb, r * nb * block // 8
-            work = {   # (kernel call, plain call, bytes moved, operations)
+            work = {   # (kernel call, plain call, the function's work)
                 "sign_pack": (
                     lambda: kern.sign_pack(x, block=block),
                     lambda: ref.sign_pack_ref(x, block),
-                    4 * n + nbits + 4 * s, 3 * n + s),
+                    kern.sign_pack_work(r, c, block)),
                 "sign_unpack": (
                     lambda: kern.sign_unpack(bits, scale, size=c,
                                              block=block),
                     lambda: ref.sign_unpack_ref(bits, scale, c, block),
-                    nbits + 4 * s + 4 * n, 3 * n),
+                    kern.sign_unpack_work(r, c, block)),
             }
-            inner = 50 if n < 1 << 20 else 1
-            for name, (fk, fp, nbytes, nops) in work.items():
-                b_ms, b_by = bound_ms(nbytes, nops)
+            inner = 50 if r * c < 1 << 20 else 1
+            for name, (fk, fp, w) in work.items():
+                b_ms, b_by = work_ms(w)
                 recs[name][(r, c)] = {
                     "ms": time_ms(torch, fk, inner),
                     "plain_ms": time_ms(torch, fp, inner),
@@ -817,22 +847,15 @@ def sign_kernel_phase(torch, kern, ref):
     return recs
 
 
-def quickstart(device: str, comms, spec=None, opt=None, executor=None,
-               **cfg):
-    """The quickstart world through HSGD.run_rounds, on the two-level
-    hierarchy or ``spec`` (group sizes, periods), with sgd(0.08) or
-    ``opt``, on the sim executor or ``executor``, with the further
-    ``EngineConfig`` fields ``cfg`` (a runtime, async levels, a metrics
-    plan); returns the final global loss and accuracy, the wire bytes, the
-    launch counts of the run, its seconds, the runtime's report (None
-    without one), the final params and error-feedback residuals of every
-    worker (on the CPU; a mesh rank gathers them) and the history."""
+def quickstart_world(device: str, comms, spec=None, opt=None,
+                     executor=None, **cfg):
+    """The quickstart world's engine (see :func:`quickstart`), its initial
+    state on ``device``, its dataset and its model."""
     import torch
     from repro_torch.core import (EngineConfig, HSGD, HierarchySpec,
                                   make_topology)
     from repro_torch.data import (FederatedDataset, label_shard_partition,
                                   make_classification)
-    from repro_torch.kernels import comms as kern
     from repro_torch.models import SimpleConfig, SimpleModel
     from repro_torch.optim import sgd
 
@@ -847,6 +870,23 @@ def quickstart(device: str, comms, spec=None, opt=None, executor=None,
                   EngineConfig(comms=comms, executor=executor, **cfg))
     state = engine.init(torch.Generator().manual_seed(0), model.init,
                         device=device)
+    return engine, state, ds, model
+
+
+def quickstart(device: str, comms, spec=None, opt=None, executor=None,
+               **cfg):
+    """The quickstart world through HSGD.run_rounds, on the two-level
+    hierarchy or ``spec`` (group sizes, periods), with sgd(0.08) or
+    ``opt``, on the sim executor or ``executor``, with the further
+    ``EngineConfig`` fields ``cfg`` (a runtime, async levels, a metrics
+    plan); returns the final global loss and accuracy, the wire bytes, the
+    launch counts of the run, its seconds, the runtime's report (None
+    without one), the final params and error-feedback residuals of every
+    worker (on the CPU; a mesh rank gathers them) and the history."""
+    import torch
+    from repro_torch.kernels import comms as kern
+    engine, state, ds, model = quickstart_world(device, comms, spec, opt,
+                                                executor, **cfg)
     gb = {k: torch.as_tensor(v, device=device)
           for k, v in ds.global_batch().items()}
 
@@ -1047,8 +1087,9 @@ def topk_kernel_phase(torch, kern, ref):
         print(f"topk_decode_reduce {at}: max |kernel - plain| {err!r}",
               flush=True)
         if (m, k, size) == TOPK_TIMED:
-            nbytes, nops = m * k * 8 + size * 4, m * k
-            b_ms, b_by = bound_ms(nbytes, nops)
+            w = kern.topk_decode_reduce_work(m, k, size)
+            nbytes = w.bytes
+            b_ms, b_by = work_ms(w)
             flat_i, flat_v = idx.reshape(-1), vals.reshape(-1)
             rec.update(
                 shape=[m, k, size], bytes=nbytes, bound_ms=b_ms, bound_by=b_by,
@@ -1680,8 +1721,8 @@ def mesh_a7d_checks(torch, res, device: str):
 
 
 def mesh_twins(device: str):
-    """The twins' mesh legs at full size, through their entry points: the
-    runtime matrix (T=96, the 8 ``elastic_mesh`` and 2 ``async_mesh``
+    """The twins' mesh legs through their entry points: the runtime matrix
+    at MESH_TWIN_STEPS steps (the 8 ``elastic_mesh`` and 2 ``async_mesh``
     arms) and the population sweep (quick=False) with its 10^6-client mesh
     leg; each in its own launch of eight gloo ranks on the card, held by
     the twin itself to its sim arms (the twin raises otherwise).  Returns
@@ -1690,7 +1731,7 @@ def mesh_twins(device: str):
     from repro_torch.experiments import bench_runtime as br
     out = {"runtime": {}}
     t0 = time.perf_counter()
-    report = br.matrix(True, device, backend="mesh")
+    report = br.matrix(True, device, backend="mesh", steps=MESH_TWIN_STEPS)
     out["runtime_wall_s"] = time.perf_counter() - t0
     for tname, row in report["topologies"].items():
         for rname in br.REGIMES:
@@ -1740,16 +1781,6 @@ def mesh_twins(device: str):
     return out
 
 
-def visible_pairs(sq: int, sk: int, causal: bool, window) -> int:
-    """The (query, key) pairs the mask lets through, counted row by row."""
-    import numpy as np
-    i = np.arange(sq)
-    hi = np.minimum(i, sk - 1) if causal else np.full(sq, sk - 1)
-    lo = np.zeros(sq, np.int64) if window is None \
-        else np.maximum(i - window + 1, 0)
-    return int(np.maximum(hi - lo + 1, 0).sum())
-
-
 def attention_timing(torch, kattn, ref, q, k, v, want, at):
     """Kernel, plain version and one ``scaled_dot_product_attention`` call
     at ``at``'s causal mask and window, on q, k, v in their own dtype,
@@ -1767,9 +1798,10 @@ def attention_timing(torch, kattn, ref, q, k, v, want, at):
     b, sq, sk, hq, hk, d, _, causal, window = at[:9]
     dtype = str(q.dtype).split(".")[-1]
     tol = ATTN_TOL[dtype]
-    pairs = visible_pairs(sq, sk, causal, window)
-    flops = 4 * b * hq * d * pairs
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    pairs = kattn.visible_pairs(sq, sk, causal, window)
+    w = kattn.flash_attention_work(b, sq, sk, hq, hk, d, q.dtype, causal,
+                                   window)
+    flops, nbytes = sum(w.flops.values()), w.bytes
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     if window is None or window >= sk:
         def library():
@@ -1806,8 +1838,7 @@ def attention_timing(torch, kattn, ref, q, k, v, want, at):
          "library_ms": time_ms(torch, library, 5),
          "f32_core_ms": flops / F32_OPS_PER_S * 1e3}
     if dtype == "bfloat16":
-        t["bound_ms"], t["bound_by"] = bound_ms(nbytes, flops,
-                                                BF16_OPS_PER_S)
+        t["bound_ms"], t["bound_by"] = work_ms(w)
         t["bound_6d_ms"] = bound_ms(nbytes, flops * 3 // 2,
                                     BF16_OPS_PER_S)[0]
         t["bound_8d_ms"] = bound_ms(nbytes, flops * 2, BF16_OPS_PER_S)[0]
@@ -2146,30 +2177,6 @@ def ssd_inputs(torch, gen, bt, s, h, p, n, dtype):
     return x, dt, A, B, C
 
 
-def ssd_work(bt, s, h, p, n, chunk):
-    """Operations of the chunked scan on these shapes: per chunk of L
-    positions, C B^T on the causal triangle (shared by the heads), and per
-    head the triangle's product with x, C times the state and the state
-    update."""
-    ops = 0
-    for s0 in range(0, s, chunk):
-        ln = min(chunk, s - s0)
-        tri = ln * (ln + 1) // 2
-        ops += 2 * tri * n + h * (2 * tri * p + 4 * ln * p * n)
-    return bt * ops
-
-
-def ssd_design_bytes(bt, s, h, p, n, chunk):
-    """The scratch traffic the kernel's passes add to the function's bytes
-    (``ssd_scan.ssd_plan``): the chunk states written (chunk_state), read
-    and written (state_pass) and read (chunk_scan); G written and read; cum
-    written and read twice."""
-    from repro_torch.kernels.ssd_scan import ssd_plan
-    plan = ssd_plan(bt, s, h, p, n, chunk)
-    return (4 * plan["states_bytes"] + 2 * plan["G_bytes"]
-            + 3 * plan["cum_bytes"])
-
-
 def ssm_kernel_phase(torch, kssd, krg, ref):
     """``ssd_scan`` and ``rglru_scan`` against their plain versions on the
     card at SSD_CASES (float32 and bfloat16), a strided-input case and
@@ -2202,13 +2209,12 @@ def ssm_kernel_phase(torch, kssd, krg, ref):
             print(f"ssd_scan {at}: max |kernel - plain| {err!r}, relative "
                   f"{rel!r}", flush=True)
             if case == SSD_TIMED:
-                nbytes = sum(t.numel() * t.element_size() for t in ins) \
-                    + y.numel() * y.element_size()
-                ops = ssd_work(*case)
+                w = kssd.ssd_scan_work(*case, ins[0].dtype)
+                nbytes, ops = w.bytes, sum(w.flops.values())
                 rate = BF16_OPS_PER_S if dtype == "bfloat16" \
                     else F32_OPS_PER_S
-                b_ms, b_by = bound_ms(nbytes, ops, rate)
-                d_bytes = nbytes + ssd_design_bytes(*case)
+                b_ms, b_by = work_ms(w)
+                d_bytes = nbytes + kssd.ssd_design_bytes(*case)
                 d_ms, d_by = bound_ms(d_bytes, ops, rate)
                 t = {"shape": list(case), "dtype": dtype, "bytes": nbytes,
                      "ops": ops, "bound_ms": b_ms, "bound_by": b_by,
@@ -2269,9 +2275,10 @@ def ssm_kernel_phase(torch, kssd, krg, ref):
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
         print(f"rglru_scan {case}: max |kernel - plain| {err!r}", flush=True)
         if case == RGLRU_CASES[-1]:
-            n = a.numel()
-            b_ms, b_by = bound_ms(12 * n, 2 * n)
-            t = {"shape": list(case), "bytes": 12 * n, "ops": 2 * n,
+            w = krg.rglru_scan_work(*case)
+            b_ms, b_by = work_ms(w)
+            t = {"shape": list(case), "bytes": w.bytes,
+                 "ops": sum(w.flops.values()),
                  "bound_ms": b_ms, "bound_by": b_by,
                  "ms": time_ms(torch, lambda: krg.rglru_scan(a, b), 5),
                  "plain_ms": time_ms(torch, lambda: ref.rglru_ref(a, b), 1,
@@ -4127,6 +4134,316 @@ def analysis_phase(torch, kern, ref):
     return rec
 
 
+# the roofline phase: the port's cost model (``repro_torch.roofline``)
+# against the card.  Each priced call is timed (the median of ROOFLINE_REPS
+# calls after a warm-up, a synchronize at each call's ends), then recorded
+# once by ``analyze_program`` on copies of its arguments, with the launch
+# counters from zero: qwen2-0.5b's prefill at full width (SERVE_BATCH x
+# SERVE_PROMPT, float32 and bfloat16, with the attention kernel), the
+# local, local-sync and global-sync steps of TRAIN_ARGV's training,
+# amortized over its period by ``combine_train_steps``, and the global
+# round of the quickstart world under int8 (host bound: priced in µs,
+# measured in ms).  A bound above its measurement means a count or a rate
+# is wrong and fails.  At TRAIN_ARGV with ROOFLINE_REDUCED
+# (tests/test_dryrun_small.py's shape: 4 workers of 2 x 32 tokens,
+# reduced qwen2-0.5b) the card's reports equal the CPU's in FLOPs by
+# class, bytes and regions: the three steps and ``loss`` with the kernel.
+# The phase should add under ROOFLINE_BUDGET_S (printed, not asserted)
+ROOFLINE_REPS = 3
+ROOFLINE_MESH = "h100x1"
+ROOFLINE_OUT = ROOT / "build" / "roofline_card_torch.json"
+ROOFLINE_REDUCED = ("--reduced", "--batch", "2", "--seq", "32")
+# the step kinds of one H-SGD period: the sync level after the local step
+ROOFLINE_KINDS = {"local": None, "local_sync": 2, "global_sync": 1}
+ROOFLINE_BUDGET_S = 40.0
+# PERF.md §6's bound column (ms): the functions' bounds at the timed
+# shapes, which the kernels' work counts must reproduce
+KERNEL_BOUNDS_MS = {
+    "int8_quantize": 0.20095, "int8_dequantize": 0.20095,
+    "int8_scale_quantize": 0.20095, "sign_pack": 0.16543,
+    "sign_unpack": 0.16543, "topk_decode_reduce": 0.04007,
+    "flash_attention bfloat16 (a)": 0.01521,
+    "flash_attention bfloat16 (b)": 0.02606,
+    "flash_attention bfloat16 (c)": 0.04347,
+    "flash_attention bfloat16 (d)": 0.04006,
+    "flash_attention float32 (a)": 0.22458,
+    "flash_attention float32 (b)": 0.38475,
+    "flash_attention float32 (c)": 0.64167,
+    "flash_attention float32 (d)": 0.51333,
+    "ssd_scan bfloat16": 0.01651, "ssd_scan float32": 0.10938,
+    "rglru_scan": 0.07512,
+}
+KERNEL_BOUND_ATOL_MS = 5e-5
+
+
+def kernel_bounds_ms(torch, kern, kattn, kssd, krg) -> dict:
+    """The keys of KERNEL_BOUNDS_MS from the kernels' ``*_work`` counts:
+    the codecs at (8, 2**24 + 77), the top-k reduce at TOPK_TIMED,
+    attention at (a)-(d) in both dtypes, the scans at their full-width
+    shapes."""
+    r, c = SHAPES[1]
+    out = {name: work_ms(getattr(kern, f"{name}_work")(r, c, BLOCK))[0]
+           for name in ("int8_quantize", "int8_dequantize",
+                        "int8_scale_quantize")}
+    out.update({name: work_ms(getattr(kern, f"{name}_work")(
+        r, c, SIGN_BLOCK))[0] for name in ("sign_pack", "sign_unpack")})
+    out["topk_decode_reduce"] = work_ms(
+        kern.topk_decode_reduce_work(*TOPK_TIMED))[0]
+    for tag, at in zip("abcd", ATTN_CASES):
+        b, sq, sk, hq, hk, d, _, causal, window = at[:9]
+        for dtype in ("bfloat16", "float32"):
+            out[f"flash_attention {dtype} ({tag})"] = work_ms(
+                kattn.flash_attention_work(b, sq, sk, hq, hk, d,
+                                           getattr(torch, dtype), causal,
+                                           window))[0]
+    for dtype in ("bfloat16", "float32"):
+        out[f"ssd_scan {dtype}"] = work_ms(kssd.ssd_scan_work(
+            *SSD_TIMED, getattr(torch, dtype)))[0]
+    out["rglru_scan"] = work_ms(krg.rglru_scan_work(*RGLRU_CASES[-1]))[0]
+    return out
+
+
+def train_world(argv, device: str):
+    """The engine that ``launch.train`` builds for ``argv``, its initial
+    state on ``device``, the first batch of its token stream, the model's
+    config and the parsed flags."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+    args = train.build_argparser().parse_args(list(argv))
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = reduced(cfg)
+    model = build_model(cfg)
+    spec = train.make_spec(args)
+    eng = train.make_engine(args, model, spec)
+    state = eng.init_from_params(
+        train.init_params(model, args.seed, device), device=device)
+    batch = train.make_stream(args, cfg.vocab_size, spec.n_workers,
+                              device)(0)
+    return eng, state, batch, cfg, args
+
+
+def reduced_reports(device: str) -> dict:
+    """At TRAIN_ARGV with ROOFLINE_REDUCED on ``device``: (FLOPs by class,
+    bytes, regions) of each step kind's report and of the model's ``loss``
+    with the kernels on one worker's batch."""
+    import dataclasses
+    from repro_torch.core import SyncEvent
+    from repro_torch.models import build_model
+    from repro_torch.roofline import analyze_program
+    from repro_torch.tree import tree_map
+    eng, st, batch, cfg, _ = train_world(TRAIN_ARGV + ROOFLINE_REDUCED,
+                                         device)
+    reps = {k: analyze_program(k, eng.step_fn(
+        None if level is None else SyncEvent(level=level)), st, batch)
+        for k, level in ROOFLINE_KINDS.items()}
+    model = build_model(dataclasses.replace(cfg, use_kernels=True))
+    reps["loss"] = analyze_program(
+        "loss", model.loss, tree_map(lambda x: x[0], st.params),
+        {k: v[0] for k, v in batch.items()})
+    return {k: (r.flops_by_class, r.bytes_per_chip, r.regions)
+            for k, r in reps.items()}
+
+
+def _median_s(torch, fn, reps: int = ROOFLINE_REPS) -> float:
+    """Median host seconds of ``reps`` calls of ``fn`` after one untimed,
+    a ``synchronize`` at each call's two ends."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def _roofline_line(label, rep, measured_s, card):
+    """Print one priced call beside its measurement; fail if the bound is
+    above it."""
+    peak = rep.peak_memory_bytes
+    print(f"roofline {label} ({card}): FLOPs by class "
+          f"{rep.flops_by_class}, bytes {rep.bytes_per_chip!r}, regions "
+          f"{rep.regions}; compute {rep.compute_s!r} s, memory "
+          f"{rep.memory_s!r} s, collective {rep.collective_s!r} s, "
+          f"dominant {rep.dominant}; bound {rep.step_s!r} s, measured "
+          f"{measured_s!r} s, share {rep.step_s / measured_s!r}; useful "
+          f"ratio {rep.useful_ratio!r}; peak "
+          f"{None if peak is None else peak / 1e9!r} GB", flush=True)
+    check(rep.step_s <= measured_s,
+          f"roofline {label}: the bound {rep.step_s} s is above the "
+          f"measured {measured_s} s: a count or a rate is wrong")
+
+
+def _roofline_record(steps, head, measured_s, card, **extra):
+    """One record of ``experiments.roofline_table``'s format, with the
+    measurement beside it."""
+    return {"steps": {k: r.asdict() for k, r in steps.items()},
+            "terms_s": {"compute": head.compute_s, "memory": head.memory_s,
+                        "collective": head.collective_s},
+            "dominant": head.dominant, "useful_ratio": head.useful_ratio,
+            "mapping": None, "n_workers": None, **extra,
+            "measured_s": measured_s, "share": head.step_s / measured_s,
+            "card": card}
+
+
+def _priced(torch, counter, name, label, fn, *args, **kw):
+    """(report, median seconds, launches of kernel ``name``) of ``fn(*args)``
+    on the card: timed first, then recorded with ``counter``'s counts
+    from zero, which must equal the report's regions of ``name``."""
+    from repro_torch.roofline import analyze_program
+    counter.reset_launch_counts()
+    measured = _median_s(torch, lambda: fn(*args))
+    timed = counter.launch_counts[name]
+    counter.reset_launch_counts()
+    rep = analyze_program(label, fn, *args, **kw)
+    torch.cuda.synchronize()
+    n = counter.launch_counts[name]
+    check(n == rep.regions.get(name, 0),
+          f"roofline {label}: {name} launched {n} times in the recorded "
+          f"call, {rep.regions.get(name, 0)} regions priced")
+    return rep, measured, timed + n
+
+
+def roofline_phase(torch, kern, kattn, kssd, krg):
+    """The cost model on the card (see the note at ROOFLINE_REPS): PERF.md
+    §6's bounds from the work counts, the priced calls beside their
+    measurements, the reduced reports card vs CPU; the records written to
+    ROOFLINE_OUT and rendered by ``experiments.roofline_table``.  Returns
+    the phase's record."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core import SyncEvent, compile_schedule
+    from repro_torch.experiments import roofline_table
+    from repro_torch.models import build_model
+    from repro_torch.roofline import combine_train_steps
+    from repro_torch.roofline.analysis import model_flops_per_step
+    t_phase = time.perf_counter()
+    card = card_line()
+    out = {"card": card, "launches": {"flash_attention": {},
+                                      "int8_scale_quantize": {}}}
+    bounds = kernel_bounds_ms(torch, kern, kattn, kssd, krg)
+    for key, want in KERNEL_BOUNDS_MS.items():
+        check(abs(bounds[key] - want) <= KERNEL_BOUND_ATOL_MS,
+              f"{key}: the work count gives a bound of {bounds[key]} ms, "
+              f"PERF.md's table {want} ms")
+    out["kernel_bounds_ms"] = bounds
+    print(f"roofline: PERF.md's bounds from the work counts (ms): {bounds}",
+          flush=True)
+    results = {}
+
+    # qwen2-0.5b's prefill at full width, with the attention kernel
+    base = dataclasses.replace(get_config("qwen2-0.5b"), use_kernels=True)
+    shape = InputShape("prefill", SERVE_PROMPT, SERVE_BATCH, "prefill")
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(base, dtype=dtype, param_dtype=dtype)
+        model = build_model(cfg)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = model.init(gen, device="cuda")
+        tokens = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+                               generator=gen, device="cuda")
+        label = f"qwen2-0.5b prefill {dtype}"
+
+        def prefill(p, t):
+            return model.prefill(p, t, max_len=SERVE_PROMPT)
+
+        rep, measured, n = _priced(
+            torch, kattn, "flash_attention", label, prefill, params, tokens,
+            model_flops=model_flops_per_step(cfg, shape))
+        check(rep.regions.get("flash_attention") == cfg.num_layers,
+              f"roofline {label}: {rep.regions} regions for "
+              f"{cfg.num_layers} layers")
+        _roofline_line(label, rep, measured, card)
+        out["launches"]["flash_attention"][f"roofline {label}"] = n
+        results[f"qwen2-0.5b|prefill_{SERVE_BATCH}x{SERVE_PROMPT}_{dtype}|"
+                f"{ROOFLINE_MESH}"] = _roofline_record(
+                    {"prefill": rep}, rep, measured, card)
+        del model, params, tokens, rep
+        torch.cuda.empty_cache()
+
+    # one H-SGD period of TRAIN_ARGV's training, step kind by step kind
+    eng, state, batch, cfg, args = train_world(TRAIN_ARGV, "cuda")
+    n_workers = eng.topology.n
+    mf = model_flops_per_step(cfg, InputShape(
+        "train", args.seq, args.batch * n_workers, "train"))
+    reports, measured = {}, {}
+    for kname, level in ROOFLINE_KINDS.items():
+        ev = None if level is None else SyncEvent(level=level)
+        label = f"qwen2-0.5b train {kname}"
+        reports[kname], measured[kname], n = _priced(
+            torch, kern, "int8_scale_quantize", label, eng.step_fn(ev),
+            state, batch, model_flops=mf)
+        check((n > 0) == (ev is not None),
+              f"roofline {label}: int8_scale_quantize launched {n} times")
+        _roofline_line(label, reports[kname], measured[kname], card)
+        if n:
+            out["launches"]["int8_scale_quantize"][f"roofline {label}"] = n
+        torch.cuda.empty_cache()
+    G, I = args.G, args.I
+    amortized = combine_train_steps(reports, G, I)
+    amortized["bound_s"] = max(amortized[t] for t in (
+        "compute_s", "memory_s", "collective_s"))
+    amortized["measured_s"] = ((G - G // I) * measured["local"]
+                               + (G // I - 1) * measured["local_sync"]
+                               + measured["global_sync"]) / G
+    amortized["share"] = amortized["bound_s"] / amortized["measured_s"]
+    print(f"roofline qwen2-0.5b train, amortized over G = {G}, I = {I} "
+          f"({card}): {amortized}", flush=True)
+    check(amortized["bound_s"] <= amortized["measured_s"],
+          f"roofline train amortized: the bound {amortized['bound_s']} s is "
+          f"above the measured {amortized['measured_s']} s")
+    key = (f"qwen2-0.5b|train_{n_workers}x{args.batch}x{args.seq}_int8|"
+           f"{ROOFLINE_MESH}")
+    results[key] = _roofline_record(
+        reports, reports["global_sync"], measured["global_sync"], card,
+        mapping="replica", n_workers=n_workers, amortized=amortized,
+        measured_by_step_s=measured)
+    del eng, state, batch, reports
+    torch.cuda.empty_cache()
+
+    # the global round of the quickstart world under int8
+    engine, qstate, ds, _ = quickstart_world("cuda", "int8")
+    G = engine.topology.periods[0]
+    rounds, t0 = compile_schedule(engine.topology.schedule(G)), 0
+    for rnd in rounds:
+        if rnd.event is not None and rnd.event.level == 1:
+            break
+        t0 += rnd.n_local
+    batches = tuple(engine._on_device(ds.batch(t, 10), qstate)
+                    for t in range(t0, t0 + rnd.n_local))
+    label = "quickstart global round int8"
+    rep, q_measured, n = _priced(torch, kern, "int8_scale_quantize", label,
+                                 engine.round_fn(rnd), qstate, batches)
+    check(n > 0, f"roofline {label}: int8_scale_quantize never launched")
+    _roofline_line(label, rep, q_measured, card)
+    out["launches"]["int8_scale_quantize"][f"roofline {label}"] = n
+    results[f"quickstart|round_{rnd.n_local}_int8|{ROOFLINE_MESH}"] = \
+        _roofline_record({"round": rep}, rep, q_measured, card)
+
+    # the reduced training and loss: card against CPU
+    same = {device: reduced_reports(device) for device in ("cuda", "cpu")}
+    for k, card_rep in same["cuda"].items():
+        print(f"roofline reduced {k}: card {card_rep}, CPU "
+              f"{same['cpu'][k]}", flush=True)
+        check(card_rep == same["cpu"][k],
+              f"roofline reduced {k}: the card's report {card_rep} is not "
+              f"the CPU's {same['cpu'][k]}")
+    out["reduced"] = same["cuda"]
+
+    roofline_table.save(results, str(ROOFLINE_OUT))
+    rows = roofline_table.main(path=str(ROOFLINE_OUT))
+    check(len(rows) == len(results),
+          f"roofline_table rendered {len(rows)} rows of {len(results)}")
+    out["records"] = results
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"roofline phase: {out['wall_s']:.1f} s (budget "
+          f"{ROOFLINE_BUDGET_S} s)", flush=True)
+    return out
+
+
 def profile_phase(torch, kattn):
     """The serving profile (``--profile``); returns its numbers."""
     import dataclasses
@@ -4195,7 +4512,7 @@ def profile_phase(torch, kattn):
 PHASES = ("kernels", "main_path", "topk_kernel", "topk_sim", "mesh",
           "attention", "serving", "ssm_kernel", "ssm_forward", "ssm_serving",
           "moe_encdec", "experiments", "runtime", "obs", "population",
-          "train", "analysis")
+          "train", "analysis", "roofline")
 
 
 def parse_args(argv):
@@ -4269,11 +4586,6 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this test "
               "needs a CUDA card", file=sys.stderr)
         return 2
-    if not (ROOT / "src" / "repro_torch").is_dir():
-        print(f"chip_smoke: no src/repro_torch under {ROOT}",
-              file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
     from repro_torch.kernels import attention as kattn
     from repro_torch.kernels import comms as kern
@@ -4311,6 +4623,7 @@ def main() -> int:
         "population": lambda: population_phase(torch, kern, ref),
         "train": lambda: train_phase(torch, kern, ref),
         "analysis": lambda: analysis_phase(torch, kern, ref),
+        "roofline": lambda: roofline_phase(torch, kern, kattn, kssd, krg),
     }
     assert tuple(phases) == PHASES
     chosen = PHASES if args.phase is None else args.phase
@@ -4372,9 +4685,12 @@ def main() -> int:
     moe_encdec, experiments = res["moe_encdec"], res["experiments"]
     runtime, obs, population = res["runtime"], res["obs"], res["population"]
     trained, analysis = res["train"], res["analysis"]
+    roofline = res["roofline"]
     for phase in (mesh, runtime, obs, population, trained, analysis):
         for name, by_run in phase["launches"].items():
             launches[name].update(by_run)
+    launches["int8_scale_quantize"].update(
+        roofline["launches"]["int8_scale_quantize"])
     kernels = []
     for name, source, replaces in (
             ("int8_quantize", "int8_codec", 68),
@@ -4428,7 +4744,8 @@ def main() -> int:
                 for label, c in runs["launches"].items() if c[name]}
 
     attn_runs = {**served["launches"], **runs_of("flash_attention"),
-                 **moe_encdec["launches"]}
+                 **moe_encdec["launches"],
+                 **roofline["launches"]["flash_attention"]}
     kernels.append({
         "name": "flash_attention", "route": "cuda",
         "source": SOURCE.format("flash_attention"),
@@ -4479,6 +4796,8 @@ def main() -> int:
                         if k != "launches"}},
         {"train": {k: v for k, v in trained.items() if k != "launches"}},
         {"analysis": _analysis_line(analysis)},
+        {"roofline": {k: v for k, v in roofline.items()
+                      if k not in ("launches", "records")}},
         {"kernels": kernels}]
     # the whole record also in a file: the lines outgrow a terminal's tail
     (out_dir / "chip_smoke.json").write_text(

@@ -31,6 +31,12 @@ auditing, as the same plain data (:class:`JaxprSummary` of
   ``repeat_interleave`` of a tensor without its output size).
 * **transfers** — copies that change device, and tensors built from host
   data (``aten.lift_fresh``): see rule R3 (:mod:`.rules`).
+* **ops** — for the cost model (:mod:`repro_torch.roofline`), every op as
+  :class:`OpShapes`: each aten op outside the kernel, collective and host
+  read regions with its operands' and results' dtypes and shapes (the
+  adds inside a marked reduce too: they are what runs), each kernel
+  region with its work, each collective with its operand, its result and
+  its axes.
 
 Autograd's backward runs on a device thread on the card; the dispatch mode
 travels with autograd's thread-local state, so those ops are recorded too.
@@ -45,7 +51,7 @@ import hashlib
 import os
 import sys
 from collections import Counter
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -104,6 +110,7 @@ class JaxprSummary:
     reduces: Tuple[OpRecord, ...]
     kernels: Tuple[str, ...] = ()      # kernel regions, in call order
     sequence: Tuple[str, ...] = ()     # "op(dtype[shape],...)" per op
+    ops: Tuple["OpShapes", ...] = ()   # what the cost model prices
 
     def count(self, *prims: str) -> int:
         """Total count over the given op names."""
@@ -112,6 +119,27 @@ class JaxprSummary:
     @property
     def collective_count(self) -> int:
         return len(self.collectives)
+
+
+Spec = Tuple[str, Tuple[int, ...]]     # (dtype, shape) of one tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class OpShapes:
+    """One op as the cost model sees it: ``kind`` "op" (an aten op),
+    "kernel" (a kernel region, priced by ``work``) or "collective" (a
+    ``MeshAxes`` call over ``axes``), with its operands' and results'
+    (dtype, shape)."""
+    primitive: str
+    kind: str
+    operands: Tuple[Spec, ...] = ()
+    results: Tuple[Spec, ...] = ()
+    axes: Tuple[str, ...] = ()
+    work: Optional[marks.Work] = None
+
+
+def _specs(tensors) -> Tuple[Spec, ...]:
+    return tuple((_dtype(t.dtype), tuple(t.shape)) for t in tensors)
 
 
 def _dtype(dt: torch.dtype) -> str:
@@ -156,9 +184,21 @@ class _Recorder(TorchDispatchMode):
         self.kernels: List[str] = []
         self.sequence: List[str] = []
         self.stack: List[str] = []
+        self.ops: List[OpShapes] = []
+        self.opaque = 0      # open regions whose inner ops are not priced
 
     # -- what the marks call -------------------------------------------------
-    def enter_region(self, kind, name, axes, tensor, dtype) -> None:
+    def enter_region(self, kind, name, axes, tensor, dtype,
+                     extra=None) -> None:
+        if not self.opaque and kind == "kernel":
+            self.ops.append(OpShapes(name, kind, work=extra()))
+        elif not self.opaque and kind == "collective":
+            shape = tuple(tensor.shape)
+            if extra > 1:                     # all_gather's result
+                shape = (extra * shape[0],) + shape[1:]
+            self.ops.append(OpShapes(
+                name, kind, _specs([tensor]),
+                ((_dtype(tensor.dtype), shape),), tuple(axes)))
         if not self.stack:
             self.counts[name] += 1
             self.sequence.append(f"{kind}:{name}")
@@ -172,9 +212,10 @@ class _Recorder(TorchDispatchMode):
                 self.lists["collectives" if kind == "collective"
                            else "reduces"].append(rec)
         self.stack.append(f"{kind}:{name}")
+        self.opaque += kind != "reduce"
 
     def exit_region(self) -> None:
-        self.stack.pop()
+        self.opaque -= not self.stack.pop().startswith("reduce:")
 
     def note(self, bucket: str, name: str, tensors) -> None:
         """A host read or transfer, at its call site."""
@@ -188,10 +229,14 @@ class _Recorder(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
-        if self.stack:
+        if self.opaque:
             return out
         name = func.overloadpacket.__name__
         ts = _tensors(args, kwargs)
+        self.ops.append(OpShapes(name, "op", _specs(ts), _specs(
+            t for t in _pytree_leaves(out) if isinstance(t, torch.Tensor))))
+        if self.stack:
+            return out
         self.counts[name] += 1
         self.sequence.append(f"{func}(" + ",".join(
             f"{_dtype(t.dtype)}{list(t.shape)}" for t in ts) + ")")
@@ -210,7 +255,7 @@ class _Recorder(TorchDispatchMode):
             dict(self.counts), tuple(self.lists["collectives"]),
             tuple(self.lists["callbacks"]), tuple(self.lists["transfers"]),
             tuple(self.lists["reduces"]), tuple(self.kernels),
-            tuple(self.sequence))
+            tuple(self.sequence), tuple(self.ops))
 
 
 def _host_read(name: str, args, kwargs) -> bool:
@@ -244,9 +289,11 @@ def _wrap(rec: _Recorder, attr: str, orig: Callable):
             return orig(self, *args, **kwargs)
         rec.note("callbacks", label, [self])
         rec.stack.append(f"callback:{label}")
+        rec.opaque += 1
         try:
             return orig(self, *args, **kwargs)
         finally:
+            rec.opaque -= 1
             rec.stack.pop()
     return read
 

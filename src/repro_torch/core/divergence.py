@@ -164,9 +164,13 @@ def partition_divergences_tree(params, groupings,
     dev = leaves[0].device
     if consts is None:
         consts = partition_constants(groupings, dev)
-    total = torch.zeros((), dtype=torch.float32, device=dev)
-    ups = [torch.zeros((), dtype=torch.float32, device=dev)
-           for _ in groupings]
+    # the sums start at their first term (no zeros to add it to: a
+    # launch less per term on the card, and 0 + t == t in float32)
+    total = None
+    ups = [None] * len(groupings)
+
+    def acc(s, t):
+        return t if s is None else s + t
 
     def means(x, i):
         return (consts["onehot"][i] @ x) / consts["sizes"][i][:, None]
@@ -179,17 +183,17 @@ def partition_divergences_tree(params, groupings,
     for x in leaves:
         if lifts is None:
             y = x - x.mean(0)
-            total = total + (y * y).sum(1).mean()
+            total = acc(total, (y * y).sum(1).mean())
             for i in range(len(groupings)):
-                ups[i] = ups[i] + up_term(means(y, i), i)
+                ups[i] = acc(ups[i], up_term(means(y, i), i))
             continue
         gmf = means(x, -1)                                 # (Nf, dim)
         xbar = (consts["weights"][-1][:, None] * gmf).sum(0)  # global mean
-        total = total + ((x - xbar) ** 2).sum(1).mean()
+        total = acc(total, ((x - xbar) ** 2).sum(1).mean())
         gmfc = gmf - xbar
-        ups[-1] = ups[-1] + up_term(gmfc, -1)
+        ups[-1] = acc(ups[-1], up_term(gmfc, -1))
         for i, lift in enumerate(lifts):
-            ups[i] = ups[i] + up_term(lift @ gmfc, i)
+            ups[i] = acc(ups[i], up_term(lift @ gmfc, i))
     out = [total]
     for up in ups:
         out += [up, total - up]

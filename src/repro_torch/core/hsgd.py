@@ -383,7 +383,11 @@ class HSGD:
         grad_norm = self.metrics is not None and self.metrics.grad_norm
 
         def local_update(params, opt_state, batch):
-            grads, metrics = mean_grads(params, batch)
+            # the backward on this thread, not handed to autograd's thread
+            # for the card and back: the same kernels in the same order,
+            # at a lower host cost a step (thread-local; no-op on the CPU)
+            with torch.autograd.set_multithreading_enabled(False):
+                grads, metrics = mean_grads(params, batch)
             if grad_norm:
                 # per-worker gradient l2 norm; executors mean it over the
                 # worker axis like every other per-step metric.  One

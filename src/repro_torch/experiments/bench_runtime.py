@@ -279,19 +279,21 @@ def _hold_mesh_arm(key, mesh, sim_hist):
 
 def matrix(quick: bool = True, device: DeviceLike = "cuda",
            init_params=None, topologies=None, regimes=None,
-           backend: str = "sim") -> Dict:
+           backend: str = "sim", steps: Optional[int] = None) -> Dict:
     """Every topology x regime (or the named subsets): the report, with
     ``claims`` beside ``topologies``.  ``init_params`` None starts from the
     reference's committed params.  ``backend`` "mesh" or "both" adds the
-    mesh leg (module docstring).  Raises on a broken invariant or a mesh
-    arm that is not the sim's, never on a false claim."""
+    mesh leg (module docstring).  ``steps`` overrides the run length (96,
+    or 384 at ``quick=False``), for a shallower mesh leg.  Raises on a
+    broken invariant or a mesh arm that is not the sim's, never on a false
+    claim."""
     if backend not in ("sim", "mesh", "both"):
         raise ValueError(f"backend must be 'sim', 'mesh' or 'both', got "
                          f"{backend!r}")
     ds, model = make_world(n_workers=8, num_classes=4)
     if init_params is None:
         init_params = load_init_params()
-    T = 96 if quick else 384
+    T = steps or (96 if quick else 384)
     report = {"steps": T, "compute_s": COMPUTE_S, "deadline_s": DEADLINE_S,
               "backend": backend, "device": resolve_device(device).type,
               "topologies": {}, "claims": {}}

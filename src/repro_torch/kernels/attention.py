@@ -14,6 +14,11 @@ then).  Every call that launches adds one to :data:`launch_counts`.  It
 refuses inputs that require grad while autograd records
 (:func:`repro_torch.kernels.refuse_grad`): the kernel has no backward.
 
+Each call is one kernel region for the analysis layer's recorder
+(:func:`repro_torch.marks.kernel`), on either device, carrying
+:func:`flash_attention_work`: the function's 4*D products per visible
+(query, key) pair per query head, and q, k, v read and o written.
+
 Both dtypes run on the tensor cores (``wgmma`` fed by TMA).  bfloat16 reads
 q, k and v as they are.  float32 computes float32-accurate products
 without TF32: a pre-pass splits q, k and v exactly into three bf16 planes
@@ -29,8 +34,10 @@ from __future__ import annotations
 
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
+from repro_torch import marks
 from repro_torch.kernels import ref, refuse_grad
 
 # the head dims the kernel is built for: those of the registry's configs
@@ -47,6 +54,30 @@ launch_counts: Dict[str, int] = {"flash_attention": 0}
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
+
+
+def visible_pairs(sq: int, sk: int, causal: bool, window) -> int:
+    """The (query, key) pairs the mask lets through, counted row by row."""
+    i = np.arange(sq)
+    hi = np.minimum(i, sk - 1) if causal else np.full(sq, sk - 1)
+    lo = np.zeros(sq, np.int64) if window is None \
+        else np.maximum(i - window + 1, 0)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def flash_attention_work(b: int, sq: int, sk: int, hq: int, hk: int,
+                         d: int, dtype: torch.dtype, causal: bool = True,
+                         window: Optional[int] = None) -> marks.Work:
+    """The function's work: Q.K^T and P.V, 2*D each per visible pair per
+    query head, float32 products for float32 inputs and 16-bit ones for
+    bfloat16 (the kernel keeps float32 sums); q, k and v read once, o
+    written once, in their dtype."""
+    pairs = visible_pairs(sq, sk, causal, window)
+    e = dtype.itemsize
+    cls = "bf16" if e == 2 else "f32"
+    return marks.Work({cls: 4 * b * hq * d * pairs},
+                      e * (b * sq * hq * d + 2 * b * sk * hk * d),
+                      e * b * sq * hq * d)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
@@ -108,8 +139,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     causal = bool(causal)
     _check(q, k, v, causal, window)
     refuse_grad("flash_attention", q, k, v)
-    if q.device.type == "cpu":
-        return ref.attention_ref(q, k, v, causal=causal, window=window)
+    b, sq, hq, d = q.shape
+    sk, hk = k.shape[1], k.shape[2]
+    with marks.kernel("flash_attention", lambda: flash_attention_work(
+            b, sq, sk, hq, hk, d, q.dtype, causal, window)):
+        if q.device.type == "cpu":
+            # in the kernel's (contiguous) layout, so that the caller's
+            # next ops are the same on either device
+            return ref.attention_ref(q, k, v, causal=causal,
+                                     window=window).contiguous()
+        return _launch(q, k, v, causal, window)
+
+
+def _launch(q, k, v, causal: bool, window: Optional[int]) -> torch.Tensor:
     b, sq, hq, d = q.shape
     sk, hk = k.shape[1], k.shape[2]
     o = torch.empty_like(q)

@@ -19,10 +19,16 @@ PyTorch's current stream (a CUDA tensor) or runs the plain version from
 :mod:`repro_torch.kernels.ref` (a CPU tensor, and only then).  Every launch
 adds one to :data:`launch_counts`.  The block size is part of the wire
 format: callers pass their codec's block, nothing shrinks it.
+
+Each wrapper call is one kernel region for the analysis layer's recorder
+(:func:`repro_torch.marks.kernel`), on either device, carrying the work of
+its ``*_work`` function: the bytes the function must move (each input read
+once, each output written once) and its float32 operations outside the
+tensor cores, from the shapes alone.  The plain version's ops on the CPU
+are the kernel's inside, as the card's are.
 """
 from __future__ import annotations
 
-import functools
 from typing import Dict, Tuple
 
 import torch
@@ -85,17 +91,52 @@ def _check_sign_block(name: str, block: int) -> int:
     return block
 
 
-def _marked(fn):
-    """A wrapper call is one kernel region for the analysis layer's
-    recorder (:func:`repro_torch.marks.kernel`): the plain version's ops
-    on the CPU are the kernel's inside, as the card's are."""
-    name = fn.__name__
+def _other(ops: int, read: int, written: int) -> marks.Work:
+    return marks.Work({"other": ops}, read, written)
 
-    @functools.wraps(fn)
-    def call(*args, **kwargs):
-        with marks.kernel(name):
-            return fn(*args, **kwargs)
-    return call
+
+def int8_quantize_work(rows: int, cols: int, block: int) -> marks.Work:
+    """x f32 read; q int8 and one f32 scale a block written; per element
+    an abs, a max, a multiply, a round, two clamps and a cast, per block a
+    reciprocal and a multiply."""
+    n, s = rows * cols, rows * -(-cols // block)
+    return _other(7 * n + 2 * s, 4 * n, n + 4 * s)
+
+
+def int8_dequantize_work(rows: int, cols: int, block: int) -> marks.Work:
+    """q int8 and the scales read; x f32 written; a cast and a multiply an
+    element."""
+    n, s = rows * cols, rows * -(-cols // block)
+    return _other(2 * n, n + 4 * s, 4 * n)
+
+
+def int8_scale_quantize_work(rows: int, cols: int, block: int
+                             ) -> marks.Work:
+    """x f32 and the shared scales read; q int8 written; a multiply, a
+    round, two clamps and a cast an element, a reciprocal a block."""
+    n, s = rows * cols, rows * -(-cols // block)
+    return _other(5 * n + s, 4 * n + 4 * s, n)
+
+
+def sign_pack_work(rows: int, cols: int, block: int) -> marks.Work:
+    """x f32 read; the bits (a byte per 8, the padded last block too) and
+    one f32 scale a block written; an abs, an add and a compare an
+    element, a divide a block."""
+    n, nb = rows * cols, rows * -(-cols // block)
+    return _other(3 * n + nb, 4 * n, nb * block // 8 + 4 * nb)
+
+
+def sign_unpack_work(rows: int, size: int, block: int) -> marks.Work:
+    """The bits and scales read; x f32 written; a shift, a mask and a
+    select an element."""
+    n, nb = rows * size, rows * -(-size // block)
+    return _other(3 * n, nb * block // 8 + 4 * nb, 4 * n)
+
+
+def topk_decode_reduce_work(m: int, k: int, size: int) -> marks.Work:
+    """The (m, k) values f32 and indices int32 read; the f32 (size,)
+    buffer written; an add an entry."""
+    return _other(m * k, 8 * m * k, 4 * size)
 
 
 def _launch(name: str, source: str, entry: str, device: torch.device,
@@ -111,27 +152,27 @@ def _launch(name: str, source: str, entry: str, device: torch.device,
     launch_counts[name] += 1
 
 
-@_marked
 def int8_quantize(x: torch.Tensor, *, block: int = 256
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x f32 (R, C) -> (q int8 (R, C), scale f32 (R, ceil(C/block)))."""
     name = "int8_quantize"
     block = _check_block(name, block)
     _check(name, "x", x, torch.float32)
-    if x.device.type == "cpu":
-        q, scale, _ = ref.int8_ref(x, block)
+    with marks.kernel(name, lambda: int8_quantize_work(*x.shape, block)):
+        if x.device.type == "cpu":
+            q, scale, _ = ref.int8_ref(x, block)
+            return q, scale
+        r, c = x.shape
+        q = torch.empty((r, c), dtype=torch.int8, device=x.device)
+        scale = torch.empty((r, -(-c // block)), dtype=torch.float32,
+                            device=x.device)
+        if x.numel():
+            _launch(name, "int8_codec", "hsgd_int8_quantize", x.device,
+                    x.data_ptr(), q.data_ptr(), scale.data_ptr(), r, c,
+                    block)
         return q, scale
-    r, c = x.shape
-    q = torch.empty((r, c), dtype=torch.int8, device=x.device)
-    scale = torch.empty((r, -(-c // block)), dtype=torch.float32,
-                        device=x.device)
-    if x.numel():
-        _launch(name, "int8_codec", "hsgd_int8_quantize", x.device,
-                x.data_ptr(), q.data_ptr(), scale.data_ptr(), r, c, block)
-    return q, scale
 
 
-@_marked
 def int8_dequantize(q: torch.Tensor, scale: torch.Tensor, *,
                     block: int = 256) -> torch.Tensor:
     """(q int8 (R, C), scale f32 (R, ceil(C/block))) -> x f32 (R, C)."""
@@ -141,16 +182,17 @@ def int8_dequantize(q: torch.Tensor, scale: torch.Tensor, *,
     r, c = q.shape
     _check(name, "scale", scale, torch.float32, (r, -(-c // block)))
     _same_device(name, q, scale)
-    if q.device.type == "cpu":
-        return ref.int8_dequant_ref(q, scale, block)
-    y = torch.empty((r, c), dtype=torch.float32, device=q.device)
-    if q.numel():
-        _launch(name, "int8_codec", "hsgd_int8_dequantize", q.device,
-                q.data_ptr(), scale.data_ptr(), y.data_ptr(), r, c, block)
-    return y
+    with marks.kernel(name, lambda: int8_dequantize_work(r, c, block)):
+        if q.device.type == "cpu":
+            return ref.int8_dequant_ref(q, scale, block)
+        y = torch.empty((r, c), dtype=torch.float32, device=q.device)
+        if q.numel():
+            _launch(name, "int8_codec", "hsgd_int8_dequantize", q.device,
+                    q.data_ptr(), scale.data_ptr(), y.data_ptr(), r, c,
+                    block)
+        return y
 
 
-@_marked
 def int8_scale_quantize(x: torch.Tensor, scale: torch.Tensor, *,
                         block: int = 256) -> torch.Tensor:
     """(x f32 (R, C), scale f32 (R, ceil(C/block))) -> q int8 (R, C),
@@ -161,16 +203,17 @@ def int8_scale_quantize(x: torch.Tensor, scale: torch.Tensor, *,
     r, c = x.shape
     _check(name, "scale", scale, torch.float32, (r, -(-c // block)))
     _same_device(name, x, scale)
-    if x.device.type == "cpu":
-        return ref.int8_scale_quant_ref(x, scale, block)
-    q = torch.empty((r, c), dtype=torch.int8, device=x.device)
-    if x.numel():
-        _launch(name, "int8_codec", "hsgd_int8_scale_quantize", x.device,
-                x.data_ptr(), scale.data_ptr(), q.data_ptr(), r, c, block)
-    return q
+    with marks.kernel(name, lambda: int8_scale_quantize_work(r, c, block)):
+        if x.device.type == "cpu":
+            return ref.int8_scale_quant_ref(x, scale, block)
+        q = torch.empty((r, c), dtype=torch.int8, device=x.device)
+        if x.numel():
+            _launch(name, "int8_codec", "hsgd_int8_scale_quantize",
+                    x.device, x.data_ptr(), scale.data_ptr(), q.data_ptr(),
+                    r, c, block)
+        return q
 
 
-@_marked
 def sign_pack(x: torch.Tensor, *, block: int = 1024
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x f32 (R, C) -> (bits uint8 (R, nb*block/8), scale f32 (R, nb)),
@@ -178,20 +221,21 @@ def sign_pack(x: torch.Tensor, *, block: int = 1024
     name = "sign_pack"
     block = _check_sign_block(name, block)
     _check(name, "x", x, torch.float32)
-    if x.device.type == "cpu":
-        return ref.sign_pack_ref(x, block)
-    r, c = x.shape
-    nb = -(-c // block)
-    bits = torch.empty((r, nb * block // 8), dtype=torch.uint8,
-                       device=x.device)
-    scale = torch.empty((r, nb), dtype=torch.float32, device=x.device)
-    if x.numel():
-        _launch(name, "sign_codec", "hsgd_sign_pack", x.device,
-                x.data_ptr(), bits.data_ptr(), scale.data_ptr(), r, c, block)
-    return bits, scale
+    with marks.kernel(name, lambda: sign_pack_work(*x.shape, block)):
+        if x.device.type == "cpu":
+            return ref.sign_pack_ref(x, block)
+        r, c = x.shape
+        nb = -(-c // block)
+        bits = torch.empty((r, nb * block // 8), dtype=torch.uint8,
+                           device=x.device)
+        scale = torch.empty((r, nb), dtype=torch.float32, device=x.device)
+        if x.numel():
+            _launch(name, "sign_codec", "hsgd_sign_pack", x.device,
+                    x.data_ptr(), bits.data_ptr(), scale.data_ptr(), r, c,
+                    block)
+        return bits, scale
 
 
-@_marked
 def sign_unpack(bits: torch.Tensor, scale: torch.Tensor, *, size: int,
                 block: int = 1024) -> torch.Tensor:
     """(bits uint8 (R, nb*block/8), scale f32 (R, nb)) -> x f32 (R, size):
@@ -207,14 +251,15 @@ def sign_unpack(bits: torch.Tensor, scale: torch.Tensor, *, size: int,
     _check(name, "bits", bits, torch.uint8, (r, nb * block // 8))
     _check(name, "scale", scale, torch.float32, (r, nb))
     _same_device(name, bits, scale)
-    if bits.device.type == "cpu":
-        return ref.sign_unpack_ref(bits, scale, size, block)
-    y = torch.empty((r, size), dtype=torch.float32, device=bits.device)
-    if y.numel():
-        _launch(name, "sign_codec", "hsgd_sign_unpack", bits.device,
-                bits.data_ptr(), scale.data_ptr(), y.data_ptr(), r, size,
-                block)
-    return y
+    with marks.kernel(name, lambda: sign_unpack_work(r, size, block)):
+        if bits.device.type == "cpu":
+            return ref.sign_unpack_ref(bits, scale, size, block)
+        y = torch.empty((r, size), dtype=torch.float32, device=bits.device)
+        if y.numel():
+            _launch(name, "sign_codec", "hsgd_sign_unpack", bits.device,
+                    bits.data_ptr(), scale.data_ptr(), y.data_ptr(), r, size,
+                    block)
+        return y
 
 
 # The tiling of csrc/topk_reduce.cu (its constants, mirrored): output tiles
@@ -263,7 +308,6 @@ def topk_plan(m: int, k: int, size: int) -> Dict[str, int]:
     return plan
 
 
-@_marked
 def topk_decode_reduce(vals: torch.Tensor, idx: torch.Tensor, *, size: int,
                        block: int = 256) -> torch.Tensor:
     """(vals f32 (M, K), idx int32 (M, K)) -> f32 (size,): the M payloads
@@ -278,18 +322,21 @@ def topk_decode_reduce(vals: torch.Tensor, idx: torch.Tensor, *, size: int,
     size = int(size)
     if size < 0:
         raise ValueError(f"{name}: size must be >= 0, got {size}")
-    if vals.device.type == "cpu":
-        return ref.topk_reduce_ref(vals, idx, size)
     m, k = vals.shape
-    if m * k > _INT32_MAX:
-        raise ValueError(f"{name}: {m} x {k} entries is past the kernel's "
-                         f"int32 slots")
-    out = torch.empty((size,), dtype=torch.float32, device=vals.device)
-    if size:
-        plan = topk_plan(m, k, size)
-        scratch = torch.empty((plan["bytes"],), dtype=torch.uint8,
-                              device=vals.device)
-        _launch(name, "topk_reduce", "hsgd_topk_decode_reduce", vals.device,
-                vals.data_ptr(), idx.data_ptr(), out.data_ptr(), m, k, size,
-                scratch.data_ptr() if plan["bytes"] else None, plan["bytes"])
-    return out
+    with marks.kernel(name, lambda: topk_decode_reduce_work(m, k, size)):
+        if vals.device.type == "cpu":
+            return ref.topk_reduce_ref(vals, idx, size)
+        if m * k > _INT32_MAX:
+            raise ValueError(f"{name}: {m} x {k} entries is past the "
+                             f"kernel's int32 slots")
+        out = torch.empty((size,), dtype=torch.float32, device=vals.device)
+        if size:
+            plan = topk_plan(m, k, size)
+            scratch = torch.empty((plan["bytes"],), dtype=torch.uint8,
+                                  device=vals.device)
+            _launch(name, "topk_reduce", "hsgd_topk_decode_reduce",
+                    vals.device, vals.data_ptr(), idx.data_ptr(),
+                    out.data_ptr(), m, k, size,
+                    scratch.data_ptr() if plan["bytes"] else None,
+                    plan["bytes"])
+        return out

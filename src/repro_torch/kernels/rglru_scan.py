@@ -10,9 +10,12 @@ PyTorch's current stream (CUDA tensors) or runs the plain version
 :func:`repro_torch.kernels.ref.rglru_ref` (CPU tensors, and only then).
 Every launch adds one to :data:`launch_counts`.  It refuses inputs that
 require grad while autograd records (:func:`repro_torch.kernels.refuse_grad`).
-The kernel reads packed (Bt, S, W) tensors; other layouts are copied to
-contiguous ones first.  It computes the exact recurrence, not the Pallas
-kernel's clamped log-space form (see ``csrc/rglru_scan.cu``).
+Each call is one kernel region for the analysis layer's recorder
+(:func:`repro_torch.marks.kernel`), on either device, carrying
+:func:`rglru_scan_work`.  The kernel reads packed (Bt, S, W) tensors;
+other layouts are copied to contiguous ones first.  It computes the exact
+recurrence, not the Pallas kernel's clamped log-space form (see
+``csrc/rglru_scan.cu``).
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ from typing import Dict
 
 import torch
 
+from repro_torch import marks
 from repro_torch.kernels import ref, refuse_grad
 
 _GRID_Y = 65535           # CUDA's limit on gridDim.y
@@ -32,6 +36,13 @@ launch_counts: Dict[str, int] = {"rglru_scan": 0}
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
+
+
+def rglru_scan_work(bt: int, s: int, w: int) -> marks.Work:
+    """a and b read, h written, float32; a multiply and an add an
+    element."""
+    n = bt * s * w
+    return marks.Work({"other": 2 * n}, 8 * n, 4 * n)
 
 
 def _check(a, b) -> None:
@@ -61,8 +72,13 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     h_t = a_t h_{t-1} + b_t from h_0 = 0."""
     _check(a, b)
     refuse_grad("rglru_scan", a, b)
-    if a.device.type == "cpu":
-        return ref.rglru_ref(a, b)[0]
+    with marks.kernel("rglru_scan", lambda: rglru_scan_work(*a.shape)):
+        if a.device.type == "cpu":
+            return ref.rglru_ref(a, b)[0]
+        return _launch(a, b)
+
+
+def _launch(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     bt, s, w = a.shape
     h = torch.empty((bt, s, w), dtype=torch.float32, device=a.device)
     if h.numel() == 0:

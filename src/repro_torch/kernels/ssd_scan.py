@@ -14,6 +14,10 @@ chunk_state, state_pass, chunk_scan; ``csrc/ssd_scan.cu``), and adds one
 to :data:`launch_counts`.  It refuses inputs that require grad while
 autograd records (:func:`repro_torch.kernels.refuse_grad`).
 
+Each call is one kernel region for the analysis layer's recorder
+(:func:`repro_torch.marks.kernel`), on either device, carrying
+:func:`ssd_scan_work`.
+
 Strided inputs: the kernel takes the batch and sequence strides of x, B
 and C and reads them in place when their inner dims are packed (x's
 (H, P), B's and C's N), as for the column slices of one projection that
@@ -28,6 +32,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch import marks
 from repro_torch.kernels import ref, refuse_grad
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -88,6 +93,42 @@ def ssd_plan(bt: int, s: int, h: int, p: int, n: int, chunk: int
         plan[f"{k}_bytes"] = 4 * math.prod(shape)
     plan["bytes"] = sum(plan[f"{k}_bytes"] for k in shapes)
     return plan
+
+
+def ssd_ops(bt: int, s: int, h: int, p: int, n: int, chunk: int) -> int:
+    """Operations of the chunked scan on these shapes: per chunk of L
+    positions, C B^T on the causal triangle (shared by the heads), and per
+    head the triangle's product with x, C times the state and the state
+    update."""
+    ops = 0
+    for s0 in range(0, s, chunk):
+        ln = min(chunk, s - s0)
+        tri = ln * (ln + 1) // 2
+        ops += 2 * tri * n + h * (2 * tri * p + 4 * ln * p * n)
+    return bt * ops
+
+
+def ssd_scan_work(bt: int, s: int, h: int, p: int, n: int, chunk: int,
+                  dtype: torch.dtype) -> marks.Work:
+    """The function's work: :func:`ssd_ops` as products in x's dtype
+    (16-bit or float32); x, B and C in x's dtype and dt and A in float32
+    read, y in x's dtype written."""
+    e = dtype.itemsize
+    return marks.Work({"bf16" if e == 2 else "f32":
+                       ssd_ops(bt, s, h, p, n, chunk)},
+                      e * bt * s * (h * p + 2 * n) + 4 * (bt * s * h + h),
+                      e * bt * s * h * p)
+
+
+def ssd_design_bytes(bt: int, s: int, h: int, p: int, n: int,
+                     chunk: int) -> int:
+    """The scratch traffic the kernel's passes add to the function's bytes
+    (:func:`ssd_plan`): the chunk states written (chunk_state), read and
+    written (state_pass) and read (chunk_scan); G written and read; cum
+    written and read twice."""
+    plan = ssd_plan(bt, s, h, p, n, chunk)
+    return (4 * plan["states_bytes"] + 2 * plan["G_bytes"]
+            + 3 * plan["cum_bytes"])
 
 
 def _check(x, dt, A, B, C, chunk) -> None:
@@ -153,8 +194,14 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     inputs zero-padded to a multiple of ``chunk``, cut back to S)."""
     _check(x, dt, A, B, C, chunk)
     refuse_grad("ssd_scan", x, dt, A, B, C)
-    if x.device.type == "cpu":
-        return ref.ssd_ref(x, dt, A, B, C)[0]
+    with marks.kernel("ssd_scan", lambda: ssd_scan_work(
+            *x.shape, B.shape[-1], chunk, x.dtype)):
+        if x.device.type == "cpu":
+            return ref.ssd_ref(x, dt, A, B, C)[0]
+        return _launch(x, dt, A, B, C, chunk)
+
+
+def _launch(x, dt, A, B, C, chunk: int) -> torch.Tensor:
     bt, s, h, p = x.shape
     n = B.shape[-1]
     y = torch.empty((bt, s, h, p), dtype=x.dtype, device=x.device)

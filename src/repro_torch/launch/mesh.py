@@ -82,7 +82,7 @@ class MeshAxes:
         """The members' ``t`` concatenated along axis 0, in rank order."""
         if not self.names:
             return t
-        with marks.collective("all_gather", self.names, t):
+        with marks.collective("all_gather", self.names, t, self.size):
             host = t.detach().to("cpu").contiguous()
             parts = [torch.empty_like(host) for _ in range(self.size)]
             dist.all_gather(parts, host, group=self.group)

@@ -214,6 +214,29 @@ def make_spec(args) -> HierarchySpec:
                          (args.G, args.I))
 
 
+def make_engine(args, model, spec: HierarchySpec, population=None) -> HSGD:
+    """The run's engine from its flags: sgd or momentum on the cosine
+    schedule, the uniform topology of ``spec``, the codec, the runtime,
+    the probes and the population (a ``Population`` or None)."""
+    lr = cosine(args.lr, args.steps, warmup_steps=min(10, args.steps // 10))
+    opt = sgd(lr) if args.optimizer == "sgd" else momentum(lr)
+    topo = make_topology(
+        "uniform", spec=spec, sync_dtype=args.sync_dtype,
+        aggregator=None if args.aggregator == "mean" else args.aggregator)
+    comms = None
+    if args.comms:
+        kw = {}
+        if args.comms_block:
+            kw["block"] = args.comms_block
+        if args.comms_rate:
+            kw["rate"] = args.comms_rate
+        comms = Comms(args.comms, **kw)
+    runtime = make_runtime_model(args, spec.num_levels)
+    return HSGD(model.loss, opt, topo, EngineConfig(
+        executor=args.backend, comms=comms, runtime=runtime,
+        metrics="on" if args.probes else None, population=population))
+
+
 def init_params(model, seed: int, device: torch.device):
     """The run's initial params: ``model.init`` from a host generator
     seeded with ``seed``, moved to ``device``, so that a run on the card
@@ -348,30 +371,13 @@ def main(argv=None, device: DeviceLike = "cuda"):
     rank = dist.get_rank() if in_mesh else 0
     say = print if rank == 0 else (lambda *a, **k: None)
 
-    lr = cosine(args.lr, args.steps, warmup_steps=min(10, args.steps // 10))
-    opt = sgd(lr) if args.optimizer == "sgd" else momentum(lr)
-    topo = make_topology(
-        "uniform", spec=spec, sync_dtype=args.sync_dtype,
-        aggregator=None if args.aggregator == "mean" else args.aggregator)
-    comms = None
-    if args.comms:
-        kw = {}
-        if args.comms_block:
-            kw["block"] = args.comms_block
-        if args.comms_rate:
-            kw["rate"] = args.comms_rate
-        comms = Comms(args.comms, **kw)
-    runtime = make_runtime_model(args, spec.num_levels)
-    engine_config = EngineConfig(executor=args.backend, comms=comms,
-                                 runtime=runtime,
-                                 metrics="on" if args.probes else None,
-                                 population=population)
-    eng = HSGD(model.loss, opt, topo, engine_config)
+    eng = make_engine(args, model, spec, population)
+    topo, comms = eng.topology, eng.comms
     from repro_torch.obs import SCHEMA_VERSION
     # JSONL header: the full engine configuration
     say(json.dumps({"schema_version": SCHEMA_VERSION,
                     "backend": args.backend, "probes": args.probes,
-                    "config": engine_config.describe()}))
+                    "config": eng.config.describe()}))
 
     if population is not None:
         return _run_sampled(args, eng, model, cfg, spec, dev, rank)
@@ -495,7 +501,7 @@ def main(argv=None, device: DeviceLike = "cuda"):
         recorder.save(args.trace)
         say(json.dumps({"trace": args.trace,
                         "trace_events": len(recorder.events)}))
-    if runtime is not None:
+    if eng.config.runtime is not None:
         # where the simulated time went, and the planner constants fitted
         # from the trace
         from repro_torch.core import CommModel

@@ -9,7 +9,8 @@ them marks them, so the recorder can count each as one thing:
   loaded with ``ctypes``, so the card's ops inside a call are invisible,
   and on the CPU the wrapper runs the plain version, whose ops would be
   seen.  The recorder lists the region by name and counts nothing inside
-  it, as the reference drops what sits under a ``pallas_call``.
+  it, as the reference drops what sits under a ``pallas_call``; the cost
+  model (:mod:`repro_torch.roofline`) prices it by its :class:`Work`.
 * :func:`collective` — one ``MeshAxes`` collective: one record with its
   axis names and its operand's dtype, elements and bytes.  Under ``gloo``
   a collective stages its operand through the host; that staging belongs
@@ -25,7 +26,8 @@ and nothing else.
 from __future__ import annotations
 
 import contextlib
-from typing import Optional, Sequence
+import dataclasses
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
@@ -34,17 +36,39 @@ _recorder = None
 _NULL = contextlib.nullcontext()
 
 
+# the cost model's FLOP classes, each priced at its own rate: products of
+# 16-bit floats (the tensor cores), float32 products, and everything else
+FLOP_CLASSES = ("bf16", "f32", "other")
+
+
+@dataclasses.dataclass(frozen=True)
+class Work:
+    """What one kernel call must do, from its shapes alone: FLOPs by class
+    (:data:`FLOP_CLASSES`) and the bytes it must read and write, each
+    input read once and each output written once."""
+    flops: Dict[str, float]
+    bytes_read: int
+    bytes_written: int
+
+    @property
+    def bytes(self) -> int:
+        return self.bytes_read + self.bytes_written
+
+
 class _Region:
-    __slots__ = ("rec", "kind", "name", "axes", "tensor", "dtype")
+    """One marked region; ``extra`` is a kernel's work (a function of no
+    arguments) or an ``all_gather``'s member count."""
+    __slots__ = ("rec", "kind", "name", "axes", "tensor", "dtype", "extra")
 
     def __init__(self, rec, kind: str, name: str, axes=(), tensor=None,
-                 dtype=None):
+                 dtype=None, extra=None):
         self.rec, self.kind, self.name = rec, kind, name
         self.axes, self.tensor, self.dtype = axes, tensor, dtype
+        self.extra = extra
 
     def __enter__(self):
         self.rec.enter_region(self.kind, self.name, self.axes, self.tensor,
-                              self.dtype)
+                              self.dtype, self.extra)
         return self
 
     def __exit__(self, *exc):
@@ -52,17 +76,21 @@ class _Region:
         return False
 
 
-def kernel(name: str):
-    """The region of one call of kernel ``name``'s wrapper."""
+def kernel(name: str, work: Callable[[], Work]):
+    """The region of one call of kernel ``name``'s wrapper; ``work()``
+    gives the call's :class:`Work` and is called only while recording."""
     rec = _recorder
-    return _NULL if rec is None else _Region(rec, "kernel", name)
+    return _NULL if rec is None else _Region(rec, "kernel", name,
+                                             extra=work)
 
 
-def collective(op: str, axes: Sequence[str], t: torch.Tensor):
-    """The region of one collective ``op`` over the mesh axes ``axes``."""
+def collective(op: str, axes: Sequence[str], t: torch.Tensor,
+               members: int = 1):
+    """The region of one collective ``op`` over the mesh axes ``axes``, on
+    ``t``; an ``all_gather`` returns ``members`` times ``t``."""
     rec = _recorder
     return _NULL if rec is None else _Region(rec, "collective", op,
-                                             tuple(axes), t)
+                                             tuple(axes), t, extra=members)
 
 
 def reduce(name: str, t: torch.Tensor, dtype: Optional[torch.dtype] = None):

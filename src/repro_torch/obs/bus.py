@@ -1,5 +1,6 @@
 """The metrics bus: one typed, versioned schema for every telemetry channel
-(the PyTorch port's copy of ``repro.obs.bus``, code unchanged).
+(the PyTorch port's copy of ``repro.obs.bus``, code unchanged but for
+a memo of :func:`spec_for`'s lookups).
 
 Before this module the repo's telemetry was an ad-hoc union of dict keys —
 ``run_rounds`` history carried the loss-aux metrics plus ``wire_bytes`` /
@@ -67,6 +68,10 @@ class MetricSpec:
 
 
 _REGISTRY: Dict[str, MetricSpec] = {}
+# spec_for's answers, per key, until the registry changes: run_rounds
+# lints every record it returns, and a pattern key's lookup otherwise
+# sorts the registry and matches every pattern against it again
+_LOOKUPS: Dict[str, Optional[MetricSpec]] = {}
 
 
 def register_metric(spec: MetricSpec, *, overwrite: bool = False) -> MetricSpec:
@@ -75,6 +80,7 @@ def register_metric(spec: MetricSpec, *, overwrite: bool = False) -> MetricSpec:
                          f"({_REGISTRY[spec.name]}); pass overwrite=True "
                          f"to replace it")
     _REGISTRY[spec.name] = spec
+    _LOOKUPS.clear()
     return spec
 
 
@@ -85,13 +91,14 @@ def registered_metrics() -> Tuple[MetricSpec, ...]:
 def spec_for(key: str) -> Optional[MetricSpec]:
     """The spec covering ``key``: exact name first, then the first (sorted)
     matching pattern."""
+    if key in _LOOKUPS:
+        return _LOOKUPS[key]
     spec = _REGISTRY.get(key)
-    if spec is not None:
-        return spec
-    for name in sorted(_REGISTRY):
-        if _REGISTRY[name].matches(key):
-            return _REGISTRY[name]
-    return None
+    if spec is None:
+        spec = next((_REGISTRY[name] for name in sorted(_REGISTRY)
+                     if _REGISTRY[name].matches(key)), None)
+    _LOOKUPS[key] = spec
+    return spec
 
 
 def validate_record(rec: Mapping, *, strict: bool = False) -> List[str]:

@@ -43,8 +43,8 @@ def sgd(lr: Schedule) -> Optimizer:
 
     def update(grads, state, params):
         del params
-        g = _lr_at(lr, state["step"])
-        upd = tree_map(lambda x: (-g * x.to(torch.float32)).to(x.dtype),
+        neg = -_lr_at(lr, state["step"])   # negated once, not per leaf
+        upd = tree_map(lambda x: (neg * x.to(torch.float32)).to(x.dtype),
                        grads)
         return upd, {"step": state["step"] + 1}
 

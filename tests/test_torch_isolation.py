@@ -79,6 +79,9 @@ def test_importing_the_port_loads_no_jax():
             "import repro_torch.experiments.bench_population\n"
             "import repro_torch.checkpoint, repro_torch.launch.train\n"
             "import repro_torch.data.synthetic\n"
+            "import repro_torch.roofline, repro_torch.roofline.op_cost\n"
+            "import repro_torch.experiments.roofline_table\n"
+            "import repro_torch.experiments.run\n"
             "from repro_torch.experiments import (fig3_sandwich,\n"
             "    table2_time_to_acc, fig3c_grouping, fig_e4_participation,\n"
             "    fig_e8_multilevel, table1_bounds, plan_deployment)\n"
