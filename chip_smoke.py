@@ -291,6 +291,17 @@ or of the JAX package.  It
    ``loss`` reports equal card against CPU; the records in
    ``experiments.roofline_table``'s format written to ROOFLINE_OUT and
    rendered by it;
+15b. dryrun phase: rank 0's program of the port's dry run
+   (``repro_torch.launch.dryrun``) on the card, under torch's fake process
+   group of 256 ranks (see the note at DRYRUN_ARCH): ``flash_attention``
+   against its plain version at DRYRUN_SLICE (float32 and bfloat16);
+   qwen2-0.5b's prefill_32k with the kernel and decode_32k (bfloat16, the
+   config's dtype), rank 0's shards
+   materialized on the card, each priced on the card and on ``meta`` (the
+   reports equal), its bound at most its measurement, the kernel's
+   launches equal its regions; train_4k on both meshes recorded on
+   ``meta`` by child processes meanwhile; the four records written to
+   DRYRUN_OUT and rendered by ``experiments.roofline_table``;
 16. writes the records below, with the card's line, to
    ``chiprun_out/chip_smoke.json``, then prints one ``{"ssm": ...}`` JSON
    line with the SSM throughputs, one ``{"moe_encdec": ...}`` line, one
@@ -298,7 +309,8 @@ or of the JAX package.  It
    line, one ``{"runtime": ...}`` line, one ``{"obs": ...}`` line, one
    ``{"population": ...}`` line, one ``{"train": ...}`` line, one
    ``{"analysis": ...}`` line, one ``{"roofline": ...}`` line, one
-   ``{"kernels": [...]}`` JSON line (all nine kernels), then the result line ``{"ok": true, "device": {...}}``
+   ``{"dryrun": ...}`` line, one ``{"kernels": [...]}`` JSON line (all
+   nine kernels), then the result line ``{"ok": true, "device": {...}}``
    last.
 
 Any failed phase exits non-zero before the result line.
@@ -308,8 +320,8 @@ Any failed phase exits non-zero before the result line.
 builds every kernel and runs only the named phases (comma-separated, in
 the order above: kernels, main_path, topk_kernel, topk_sim, mesh,
 attention, serving, ssm_kernel, ssm_forward, ssm_serving, moe_encdec,
-experiments, runtime, obs, population, train, analysis, roofline),
-writes their
+experiments, runtime, obs, population, train, analysis, roofline,
+dryrun), writes their
 records to ``chiprun_out/chip_smoke_phases.json``, prints one JSON line
 per phase and the result line last.  The ``kernels`` line needs every
 phase, so it is printed only by a run without ``--phase``.
@@ -495,10 +507,11 @@ MESH_ATOL = 1e-3                 # tests/test_differential.py:247
 DENSE_FORM_TURNS = 64
 DENSE_FORM_MIN_RATIO = 0.95
 # the runtime twin's mesh leg runs cut in depth to pay for the roofline
-# phase: MESH_TWIN_STEPS steps for 96 (the runtime phase runs the full
+# and dryrun phases: MESH_TWIN_STEPS steps for 96 (48 from the roofline
+# phase on, 24 from the dryrun phase on; the runtime phase runs the full
 # matrix on the sim); every arm and every regime still runs, and each mesh
 # arm is still held to its sim arm
-MESH_TWIN_STEPS = 48
+MESH_TWIN_STEPS = 24
 # exact mode against sim where the two are not bit for bit (ROADMAP C)
 EXACT_FALLBACK_RTOL = 1e-6
 # the experiments phase: the paper's claims (the seven mains of
@@ -4444,6 +4457,162 @@ def roofline_phase(torch, kern, kattn, kssd, krg):
     return out
 
 
+# 15b. the dry run on the card (``repro_torch.launch.dryrun``): rank 0's
+# program of DRYRUN_ARCH on the production mesh (data=16, model=16) under
+# torch's fake process group (its collectives return without data; the
+# compute is real).  prefill_32k with the attention kernel (2 sequences of
+# 32,768 tokens a rank, GQA 14/2 heads, D = 64) in the config's bfloat16,
+# and decode_32k, each materialized on the card (rank
+# 0's shards, the params' from a full init) and recorded on ``meta`` too:
+# the two reports must be equal, the kernel's launches equal its regions,
+# each bound at most its measurement (median of ROOFLINE_REPS after a
+# warm-up).  The kernel is held against its plain version at this shape on
+# DRYRUN_SLICE, which the plain version's (S x S) logits fit, in float32
+# and bfloat16.  The pairs
+# that cannot be materialized (train_4k: with the kernels off, as the
+# reference's dry run has them, the saved attention scores alone are ~15 GB
+# a layer) are recorded on ``meta`` by ``python -m repro_torch.launch.
+# dryrun`` in child processes meanwhile, on the host's other cores.  The
+# four records go to DRYRUN_OUT and ``roofline_table`` renders them.
+DRYRUN_ARCH = "qwen2-0.5b"
+DRYRUN_OUT = ROOT / "build" / "dryrun_torch.json"
+DRYRUN_PARTS = ROOT / "build" / "dryrun_parts"
+DRYRUN_META_PAIRS = (("train_4k", "single"), ("train_4k", "multi"))
+DRYRUN_SLICE = (1, 32768, 2, 1, 64)      # (B, S, Hq, Hk, D)
+DRYRUN_CHILD_TIMEOUT = 600.0
+DRYRUN_BUDGET_S = 40.0
+
+
+def _dryrun_children():
+    """Start one ``python -m repro_torch.launch.dryrun`` per meta pair."""
+    DRYRUN_PARTS.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep \
+        + env.get("PYTHONPATH", "")
+    procs = {}
+    for shape, mesh in DRYRUN_META_PAIRS:
+        out = DRYRUN_PARTS / f"{shape}_{mesh}.json"
+        procs[out] = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             DRYRUN_ARCH, "--shape", shape, "--mesh", mesh, "--force",
+             "--out", str(out)], cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return procs
+
+
+def _dryrun_slice(torch, kattn, ref):
+    """``flash_attention`` against ``attention_ref`` at the phase's
+    sequence length on DRYRUN_SLICE, in both dtypes: max |diff|."""
+    b, s, hq, hk, d = DRYRUN_SLICE
+    errs = {}
+    for dtype in ("float32", "bfloat16"):
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        q, k, v = (torch.randn((b, s, h, d), generator=gen, device="cuda")
+                   .to(getattr(torch, dtype)) for h in (hq, hk, hk))
+        got = kattn.flash_attention(q, k, v, causal=True)
+        want = ref.attention_ref(q, k, v, causal=True)
+        errs[dtype] = (got.float() - want.float()).abs().max().item()
+        check(errs[dtype] <= ATTN_TOL[dtype],
+              f"dryrun: flash_attention {dtype} at {DRYRUN_SLICE} lies "
+              f"{errs[dtype]} from its plain version (tolerance "
+              f"{ATTN_TOL[dtype]})")
+        del q, k, v, got, want
+        torch.cuda.empty_cache()
+    return errs
+
+
+def _dryrun_pair(torch, kattn, D, cfg, shape, mesh, card):
+    """One pair on the card: its meta report, its card report (timed,
+    then recorded with the launch counter from zero) and its record."""
+    program = {"prefill": D.prefill_program,
+               "decode": D.decode_program}[shape.kind]
+    label = f"dryrun {cfg.name} {shape.name} {cfg.dtype}"
+    mf = D.model_flops_per_chip(cfg, shape, mesh)
+    meta = D.price(label, program(cfg, shape, mesh), mesh, mf)
+    t0 = time.perf_counter()
+    prog = program(cfg, shape, mesh, seed=0)
+    rep, measured, n = _priced(torch, kattn, "flash_attention", label,
+                               prog.fn, *prog.args, top_axis="pod",
+                               model_flops=mf)
+    record_s = time.perf_counter() - t0
+    want = cfg.num_layers if shape.kind == "prefill" else 0
+    check(rep.regions.get("flash_attention", 0) == want,
+          f"{label}: {rep.regions} regions for {want} attention calls")
+    fields = ("flops_by_class", "bytes_per_chip", "coll_intra", "coll_cross",
+              "regions")
+    got, wanted = ({f: getattr(r, f) for f in fields} for r in (rep, meta))
+    print(f"{label}: card {got}, meta {wanted}", flush=True)
+    check(got == wanted, f"{label}: the card's report {got} is not the meta "
+          f"report {wanted}")
+    print(f"{label}: collective bytes intra {rep.coll_intra!r}, cross "
+          f"{rep.coll_cross!r}, by kind {rep.coll_by_kind}", flush=True)
+    _roofline_line(label, rep, measured, card)
+    rec = D.make_record(cfg.name, shape, False, {
+        shape.kind: rep, "_resident": prog.resident_bytes}, record_s, 256)
+    rec.update(measured_s=measured, share=rep.step_s / measured, card=card)
+    del prog
+    torch.cuda.empty_cache()
+    return rec, n
+
+
+def dryrun_phase(torch, kattn, ref):
+    """The dry run on the card (see the note at DRYRUN_ARCH); returns the
+    phase's record."""
+    import dataclasses
+    from repro_torch.configs import INPUT_SHAPES, get_config
+    from repro_torch.experiments import roofline_table
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_production_mesh
+    t_phase = time.perf_counter()
+    card = card_line()
+    out = {"card": card, "launches": {"flash_attention": {}}}
+    children = _dryrun_children()
+    try:
+        out["slice_max_abs_err"] = _dryrun_slice(torch, kattn, ref)
+        base = dataclasses.replace(get_config(DRYRUN_ARCH), use_kernels=True)
+        results, shares = {}, {}
+        with D.fake_world(256):
+            mesh = make_production_mesh(False, device_type="cuda")
+            # the config's dtype; float32 at this shape is held on the
+            # slice only: priced whole, its f32 attention regions (at the
+            # float32 rate) bound it above its measured time (PERF.md §6)
+            for sname, dtype in (("prefill_32k", base.dtype),
+                                 ("decode_32k", base.dtype)):
+                cfg = dataclasses.replace(base, dtype=dtype,
+                                          param_dtype=dtype)
+                rec, n = _dryrun_pair(torch, kattn, D, cfg,
+                                      INPUT_SHAPES[sname], mesh, card)
+                if n:
+                    out["launches"]["flash_attention"][
+                        f"dryrun {sname} {dtype}"] = n
+                shares[f"{sname} {dtype}"] = rec["share"]
+                if dtype == base.dtype:
+                    results[f"{DRYRUN_ARCH}|{sname}|single"] = rec
+        for path, proc in children.items():
+            log, _ = proc.communicate(timeout=DRYRUN_CHILD_TIMEOUT)
+            check(proc.returncode == 0, f"dryrun: {' '.join(proc.args)} "
+                  f"exited {proc.returncode}:\n{log[-3000:]}")
+            results.update(roofline_table.load(str(path)))
+    finally:
+        for proc in children.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    check(not torch.distributed.is_initialized(),
+          "dryrun: the fake process group outlived the phase")
+    roofline_table.save(results, str(DRYRUN_OUT))
+    rows = roofline_table.main(path=str(DRYRUN_OUT))
+    check(len(rows) == len(results) == 2 + len(DRYRUN_META_PAIRS),
+          f"dryrun: roofline_table rendered {len(rows)} rows of "
+          f"{len(results)}")
+    out["records"] = results
+    out["shares"] = shares
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"dryrun phase: {out['wall_s']:.1f} s (budget {DRYRUN_BUDGET_S} "
+          "s)", flush=True)
+    return out
+
+
 def profile_phase(torch, kattn):
     """The serving profile (``--profile``); returns its numbers."""
     import dataclasses
@@ -4512,7 +4681,7 @@ def profile_phase(torch, kattn):
 PHASES = ("kernels", "main_path", "topk_kernel", "topk_sim", "mesh",
           "attention", "serving", "ssm_kernel", "ssm_forward", "ssm_serving",
           "moe_encdec", "experiments", "runtime", "obs", "population",
-          "train", "analysis", "roofline")
+          "train", "analysis", "roofline", "dryrun")
 
 
 def parse_args(argv):
@@ -4624,6 +4793,7 @@ def main() -> int:
         "train": lambda: train_phase(torch, kern, ref),
         "analysis": lambda: analysis_phase(torch, kern, ref),
         "roofline": lambda: roofline_phase(torch, kern, kattn, kssd, krg),
+        "dryrun": lambda: dryrun_phase(torch, kattn, ref),
     }
     assert tuple(phases) == PHASES
     chosen = PHASES if args.phase is None else args.phase
@@ -4685,7 +4855,7 @@ def main() -> int:
     moe_encdec, experiments = res["moe_encdec"], res["experiments"]
     runtime, obs, population = res["runtime"], res["obs"], res["population"]
     trained, analysis = res["train"], res["analysis"]
-    roofline = res["roofline"]
+    roofline, dryrun = res["roofline"], res["dryrun"]
     for phase in (mesh, runtime, obs, population, trained, analysis):
         for name, by_run in phase["launches"].items():
             launches[name].update(by_run)
@@ -4745,7 +4915,8 @@ def main() -> int:
 
     attn_runs = {**served["launches"], **runs_of("flash_attention"),
                  **moe_encdec["launches"],
-                 **roofline["launches"]["flash_attention"]}
+                 **roofline["launches"]["flash_attention"],
+                 **dryrun["launches"]["flash_attention"]}
     kernels.append({
         "name": "flash_attention", "route": "cuda",
         "source": SOURCE.format("flash_attention"),
@@ -4798,6 +4969,8 @@ def main() -> int:
         {"analysis": _analysis_line(analysis)},
         {"roofline": {k: v for k, v in roofline.items()
                       if k not in ("launches", "records")}},
+        {"dryrun": {k: v for k, v in dryrun.items()
+                    if k not in ("launches", "records")}},
         {"kernels": kernels}]
     # the whole record also in a file: the lines outgrow a terminal's tail
     (out_dir / "chip_smoke.json").write_text(

@@ -12,6 +12,11 @@ auditing, as the same plain data (:class:`JaxprSummary` of
   names and its operand's dtype, elements and bytes.  These ARE the wire
   under the mesh executor.  Under ``gloo`` each stages its operand through
   the host; the staging is the collective's and is not recorded again.
+  torch's functional collectives (``_c10d_functional.all_reduce``,
+  ``all_gather_into_tensor``, ``reduce_scatter_tensor``,
+  ``all_to_all_single``: a DTensor's redistributions) are recorded the
+  same way, over the mesh axes their group spans
+  (:func:`repro_torch.marks.group_axes`).
 * **reduces** — ``aten.sum``/``aten.mean`` of every overload and the
   products (``mm``, ``addmm``, ``bmm``, ``baddbmm``, ``mv``, ``dot``), the
   counterparts of ``reduce_sum``/``dot_general``; ``amax``/``amin`` are not
@@ -38,6 +43,12 @@ auditing, as the same plain data (:class:`JaxprSummary` of
   region with its work, each collective with its operand, its result and
   its axes.
 
+An op on DTensors is not recorded as such: the mode lets the DTensor
+unwrap, and records the ops it then runs on its local shards (its
+redistributions' collectives, then the op itself), at the shapes one rank
+holds, so a recorded call is one rank's program.  The ops DTensor runs on
+fake tensors to propagate shardings are not recorded.
+
 Autograd's backward runs on a device thread on the card; the dispatch mode
 travels with autograd's thread-local state, so those ops are recorded too.
 A callback's or transfer's ``path`` is the innermost call site outside
@@ -54,12 +65,19 @@ from collections import Counter
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
+from torch._subclasses.fake_tensor import FakeTensor, FakeTensorMode
+from torch.utils._python_dispatch import (TorchDispatchMode,
+                                          _get_current_dispatch_mode)
 from torch.utils._pytree import tree_leaves as _pytree_leaves
 
 from repro_torch import marks
 
-COLLECTIVE_PRIMS = frozenset({"psum", "pmax", "all_gather"})
+# torch's functional collectives, by their aten names
+FUNCTIONAL_COLLECTIVES = frozenset({"all_reduce", "all_gather_into_tensor",
+                                    "reduce_scatter_tensor",
+                                    "all_to_all_single"})
+COLLECTIVE_PRIMS = frozenset({"psum", "pmax", "all_gather"}) \
+    | FUNCTIONAL_COLLECTIVES
 REDUCE_PRIMS = frozenset({"sum", "mean", "mm", "addmm", "bmm", "baddbmm",
                           "mv", "dot", "member_sum", "sum_in"})
 # host reads: the aten ops, then the Tensor methods the recorder wraps
@@ -228,19 +246,33 @@ class _Recorder(TorchDispatchMode):
     # -- the dispatch mode ---------------------------------------------------
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if FakeTensor in types or isinstance(_get_current_dispatch_mode(),
+                                             FakeTensorMode):
+            return func(*args, **kwargs)   # a DTensor propagating shardings
+        if types and _unwraps(types):
+            return NotImplemented          # its local ops come back here
         out = func(*args, **kwargs)
         if self.opaque:
             return out
         name = func.overloadpacket.__name__
         ts = _tensors(args, kwargs)
-        self.ops.append(OpShapes(name, "op", _specs(ts), _specs(
-            t for t in _pytree_leaves(out) if isinstance(t, torch.Tensor))))
+        results = _specs(t for t in _pytree_leaves(out)
+                         if isinstance(t, torch.Tensor))
+        coll = name in FUNCTIONAL_COLLECTIVES \
+            and func.namespace == "_c10d_functional"
+        axes = _group_of(func, args, kwargs) if coll else ()
+        self.ops.append(OpShapes(name, "collective" if coll else "op",
+                                 _specs(ts), results, axes))
         if self.stack:
             return out
         self.counts[name] += 1
         self.sequence.append(f"{func}(" + ",".join(
             f"{_dtype(t.dtype)}{list(t.shape)}" for t in ts) + ")")
-        if name in REDUCE_PRIMS:
+        if coll:
+            dtypes, elements, nbytes = _stats(ts)
+            self.lists["collectives"].append(OpRecord(
+                name, "", axes, dtypes, elements, nbytes))
+        elif name in REDUCE_PRIMS:
             dtypes, elements, nbytes = _stats(ts)
             self.lists["reduces"].append(OpRecord(
                 name, "/".join(self.stack), (), dtypes, elements, nbytes))
@@ -256,6 +288,25 @@ class _Recorder(TorchDispatchMode):
             tuple(self.lists["callbacks"]), tuple(self.lists["transfers"]),
             tuple(self.lists["reduces"]), tuple(self.kernels),
             tuple(self.sequence), tuple(self.ops))
+
+
+def _unwraps(types) -> bool:
+    """Does one of the tensor subclasses ``types`` unwrap to plain tensors
+    when the mode declines the op: a DTensor, or a functional collective's
+    result that has not been waited on?"""
+    mods = [sys.modules.get("torch.distributed.tensor"),
+            sys.modules.get("torch.distributed._functional_collectives")]
+    wrappers = tuple(t for m, attr in zip(mods, ("DTensor",
+                                                 "AsyncCollectiveTensor"))
+                     if m is not None for t in (getattr(m, attr),))
+    return any(issubclass(t, wrappers) for t in types)
+
+
+def _group_of(func, args, kwargs) -> Tuple[str, ...]:
+    """The mesh axes of a functional collective's process group."""
+    names = [a.name for a in func._schema.arguments]
+    bound = dict(zip(names, args), **kwargs)
+    return marks.group_axes(bound["group_name"])
 
 
 def _host_read(name: str, args, kwargs) -> bool:

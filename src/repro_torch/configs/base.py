@@ -3,9 +3,11 @@
 
 One dataclass covers dense / moe / ssm / hybrid / audio (enc-dec) / vlm.
 Fields irrelevant to a family keep their defaults; ``family`` selects the
-forward-pass builder in ``repro_torch.models.model``.  Two differences
+forward-pass builder in ``repro_torch.models.model``.  One difference
 from the reference: ``use_pallas`` is ``use_kernels`` here (same role,
-same default), and the GSPMD sharding hint ``act_pspec`` is left out.
+same default).  ``act_pspec`` is the residual stream's placement on a
+DTensor's mesh (``repro_torch.models.transformer.constrain_acts``), where
+the reference's is a GSPMD sharding constraint.
 """
 from __future__ import annotations
 
@@ -79,6 +81,10 @@ class ModelConfig:
     # 'gather' = index-based dispatch (O(E*C*d) bytes, no dispatch matmul) —
     # §Perf iteration, numerically identical (tested)
     moe_dispatch: str = "einsum"
+    # optional activation sharding constraint on the residual stream
+    # (PartitionSpec entries for (batch, seq, d_model)), applied inside the
+    # layer loop; None entries = unconstrained.  Used by §Perf iterations.
+    act_pspec: Optional[Tuple[Optional[str], ...]] = None
 
     def __post_init__(self):
         if self.head_dim is None:

@@ -478,7 +478,10 @@ class MeshExecutor(Executor):
     a ``GroupedTopology`` lowers over all ranks, so any mesh of ``n`` ranks
     serves it.  None builds the matching mesh at bind time, which every
     rank must then do in the same order.  The default process group must
-    be initialized with one process per worker (``launch.mesh.launch``).
+    be initialized with one process per worker (``launch.mesh.launch``),
+    or with ``mesh.model`` processes per worker for a mesh built over a
+    ``DeviceMesh`` whose trailing dims hold a worker's ranks (the dry
+    run's tensor parallelism inside a worker, ``launch.dryrun``).
 
     Each process holds its own worker's row of params, optimizer state and
     residuals (a leading worker axis of 1) and takes its own row of every
@@ -527,7 +530,8 @@ class MeshExecutor(Executor):
                 "repro_torch.launch.mesh.launch(fn, n_workers), or use the "
                 "sim executor (executor='sim')")
         world = dist.get_world_size()
-        if world != topo.n:
+        model = 1 if self.mesh is None else self.mesh.model
+        if world != topo.n * model:
             raise ValueError(
                 f"the mesh executor runs one process per worker: "
                 f"{type(topo).__name__} has {topo.n} workers, the process "

@@ -1,6 +1,7 @@
 """Device resolution shared by the port's entry points."""
 from __future__ import annotations
 
+import sys
 from typing import Union
 
 import numpy as np
@@ -31,3 +32,21 @@ def recip_f32(c: float) -> float:
     multiplies by this value on every device, so CPU, card and reference
     agree bitwise."""
     return float(np.float32(1.0) / np.float32(c))
+
+
+def is_dtensor(x) -> bool:
+    """Is ``x`` a ``torch.distributed.tensor.DTensor``?  Without importing
+    that module (1.4 s): none exists until something has imported it."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(x, mod.DTensor)
+
+
+def dtensor_of(x):
+    """The DTensor that ``x`` is, or that functorch's wrappers (``vmap``,
+    ``grad``) hold inside it; None for anything else."""
+    if sys.modules.get("torch.distributed.tensor") is None:
+        return None
+    from torch._C import _functorch
+    while _functorch.is_functorch_wrapped_tensor(x):
+        x = _functorch.get_unwrapped(x)
+    return x if is_dtensor(x) else None

@@ -1,13 +1,16 @@
 """Roofline table: the twin of ``benchmarks/roofline_table.py``.
 
-Renders the port's dry-run cache (``build/dryrun_torch.json``, what the
-port's dry run will write) into the per-(arch x shape x mesh) three-term
-table, per H100 (:class:`repro_torch.roofline.HW`).  The records are the
-reference's: ``"arch|shape|mesh"`` keys, each with ``steps`` (every
-lowered step's ``RooflineReport.asdict()``), ``terms_s``, ``dominant``,
-``useful_ratio``, ``mapping``, ``n_workers`` and, for training,
-``amortized``.  :func:`save` writes such a cache (``chip_smoke.py`` writes
-the card's priced calls with it) and refuses the reference's own file.
+Renders the port's dry-run cache (``build/dryrun_torch.json``, which
+``python -m repro_torch.launch.dryrun`` writes) into the per-(arch x shape
+x mesh) three-term table, per H100 (:class:`repro_torch.roofline.HW`).
+The records are the reference's: ``"arch|shape|mesh"`` keys, each with
+``steps`` (every recorded step's ``RooflineReport.asdict()``), ``terms_s``,
+``dominant``, ``useful_ratio``, ``mapping``, ``n_workers`` and, for
+training, ``amortized``.  A step recorded on ``meta`` has no peak memory;
+its record's ``rank0_resident_bytes`` (rank 0's local state and batch
+shards) stands in for it in ``fits_hbm``.  :func:`save` writes such a
+cache (``chip_smoke.py`` writes the card's priced calls with it) and
+refuses the reference's own file.
 """
 from __future__ import annotations
 
@@ -46,6 +49,7 @@ def rows(results: Dict) -> List[Dict]:
             next(iter(steps))
         head = steps[head_name]
         peak = head.get("peak_memory_bytes") or 0
+        held = peak or rec.get("rank0_resident_bytes") or 0
         row = {
             "arch": arch, "shape": shape, "mesh": mesh,
             "mapping": rec.get("mapping") or "-",
@@ -56,7 +60,7 @@ def rows(results: Dict) -> List[Dict]:
             "dominant": rec["dominant"],
             "useful_ratio": rec.get("useful_ratio", 0.0),
             "peak_gb": peak / 1e9,
-            "fits_hbm": peak <= HBM_PER_CHIP,
+            "fits_hbm": held <= HBM_PER_CHIP,
         }
         if "amortized" in rec:
             row["amortized_dominant"] = rec["amortized"]["dominant"]
@@ -67,7 +71,8 @@ def rows(results: Dict) -> List[Dict]:
 def main(quick: bool = True, path: str = DEFAULT):
     if not os.path.exists(path):
         print(f"(roofline) no dry-run cache at {path}; run "
-              "the port's dry run first")
+              "the port's dry run first (python -m repro_torch.launch."
+              "dryrun)")
         return []
     rs = rows(load(path))
     cols = ["arch", "shape", "mesh", "mapping", "dominant", "compute_s",

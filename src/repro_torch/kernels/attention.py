@@ -10,7 +10,8 @@ The wrapper checks its inputs and raises on anything the kernel does not
 take, allocates the output, and then either launches the CUDA kernel on
 PyTorch's current stream (CUDA tensors) or runs the plain version
 :func:`repro_torch.kernels.ref.attention_ref` (CPU tensors, and only
-then).  Every call that launches adds one to :data:`launch_counts`.  It
+then); on ``meta`` tensors it returns the output's shape and launches
+nothing.  Every call that launches adds one to :data:`launch_counts`.  It
 refuses inputs that require grad while autograd records
 (:func:`repro_torch.kernels.refuse_grad`): the kernel has no backward.
 
@@ -94,10 +95,10 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
                              f"shape {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {what} must be contiguous")
-        if t.device.type not in ("cpu", "cuda"):
+        if t.device.type not in ("cpu", "cuda", "meta"):
             raise ValueError(f"{name}: {what} is on {t.device}; the kernel "
-                             "takes CUDA tensors and the plain version CPU "
-                             "ones")
+                             "takes CUDA tensors, the plain version CPU "
+                             "ones and the shape-only route meta ones")
     if not q.dtype == k.dtype == v.dtype:
         raise TypeError(f"{name}: q, k and v must share one dtype, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
@@ -148,6 +149,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             # next ops are the same on either device
             return ref.attention_ref(q, k, v, causal=causal,
                                      window=window).contiguous()
+        if q.device.type == "meta":
+            # shapes only, nothing launched or counted: a program recorded
+            # on the meta device (the dry run) prices this region as the
+            # card's does
+            return torch.empty_like(q)
         return _launch(q, k, v, causal, window)
 
 

@@ -39,6 +39,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import marks
+from repro_torch.device import is_dtensor
 
 # replica-axis names per hierarchy depth, level 1 (global) first; deeper
 # hierarchies take generic lvl<ℓ> names
@@ -66,10 +67,18 @@ class MeshAxes:
         if not self.names:
             return t
         name = "psum" if op == dist.ReduceOp.SUM else "pmax"
-        with marks.collective(name, self.names, t):
-            host = t.detach().to("cpu", copy=True).contiguous()
-            dist.all_reduce(host, op=op, group=self.group)
-            return host.to(t.device)
+        local = t.to_local() if is_dtensor(t) else t
+        with marks.collective(name, self.names, local):
+            if dist.get_backend(self.group) == "gloo":
+                host = local.detach().to("cpu", copy=True).contiguous()
+                dist.all_reduce(host, op=op, group=self.group)
+                out = host.to(local.device)
+            else:
+                # on the tensor's own device: a meta tensor (the dry run's
+                # fake world) has no host copy
+                out = local.detach().clone().contiguous()
+                dist.all_reduce(out, op=op, group=self.group)
+        return _like(t, out)
 
     def psum(self, t: torch.Tensor) -> torch.Tensor:
         """Sum over the group, in ``t``'s dtype (int32 stays int32)."""
@@ -82,30 +91,53 @@ class MeshAxes:
         """The members' ``t`` concatenated along axis 0, in rank order."""
         if not self.names:
             return t
-        with marks.collective("all_gather", self.names, t, self.size):
-            host = t.detach().to("cpu").contiguous()
-            parts = [torch.empty_like(host) for _ in range(self.size)]
-            dist.all_gather(parts, host, group=self.group)
-            return torch.cat(parts, dim=0).to(t.device)
+        local = t.to_local() if is_dtensor(t) else t
+        with marks.collective("all_gather", self.names, local, self.size):
+            if dist.get_backend(self.group) == "gloo":
+                host = local.detach().to("cpu").contiguous()
+                parts = [torch.empty_like(host) for _ in range(self.size)]
+                dist.all_gather(parts, host, group=self.group)
+                out = torch.cat(parts, dim=0).to(local.device)
+            else:
+                out = local.new_empty((self.size * local.shape[0],)
+                                      + tuple(local.shape[1:]))
+                dist.all_gather_into_tensor(out, local.contiguous(),
+                                            group=self.group)
+        return _like(t, out)
+
+
+def _like(t: torch.Tensor, local: torch.Tensor) -> torch.Tensor:
+    """``local`` as ``t`` is: a DTensor on ``t``'s mesh and placements
+    when ``t`` is one (a collective over replicas leaves a worker's own
+    sharding as it was), else ``local`` itself."""
+    if not is_dtensor(t):
+        return local
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(local, t.device_mesh, t.placements,
+                              run_check=False)
 
 
 class HSGDMesh:
     """This rank's view of a uniform hierarchy's mesh: its coordinates over
     ``group_sizes`` (outermost first) and one :class:`MeshAxes` per level,
-    the axes of levels >= ℓ (see :func:`make_hsgd_mesh`)."""
+    the axes of levels >= ℓ (see :func:`make_hsgd_mesh`).  ``model`` is the
+    number of ranks of one worker (tensor parallelism inside it, the
+    device mesh's trailing dims): rank r is worker ``r // model``."""
 
     def __init__(self, group_sizes: Sequence[int],
                  axis_names: Tuple[str, ...], rank: int,
-                 groups: Dict[Tuple[str, ...], Any]):
+                 groups: Dict[Tuple[str, ...], Any], model: int = 1):
         self.group_sizes = tuple(int(g) for g in group_sizes)
         self.axis_names = tuple(axis_names)
         self.rank = int(rank)
+        self.model = int(model)
         self._groups = groups
 
     @property
     def coords(self) -> Tuple[int, ...]:
-        """This rank's coordinates, row-major over ``group_sizes``."""
-        out, r = [], self.rank
+        """This rank's worker's coordinates, row-major over
+        ``group_sizes``."""
+        out, r = [], self.rank // self.model
         for s in reversed(self.group_sizes):
             out.append(r % s)
             r //= s
@@ -128,24 +160,51 @@ class HSGDMesh:
 
     @property
     def world(self) -> MeshAxes:
-        """Every replica axis: all ranks."""
+        """Every replica axis: all workers (the ranks of this rank's
+        'model' coordinate)."""
         return self.axes(self.axis_names)
 
     def __repr__(self):
-        return (f"HSGDMesh({dict(zip(self.axis_names, self.group_sizes))}, "
-                f"rank={self.rank})")
+        model = f", model={self.model}" if self.model > 1 else ""
+        return (f"HSGDMesh({dict(zip(self.axis_names, self.group_sizes))}"
+                f"{model}, rank={self.rank})")
 
 
 def make_hsgd_mesh(group_sizes: Sequence[int],
-                   axis_names: Optional[Sequence[str]] = None) -> HSGDMesh:
+                   axis_names: Optional[Sequence[str]] = None, *,
+                   device_mesh=None) -> HSGDMesh:
     """The mesh of a uniform hierarchy over the initialized default process
     group, whose world must be ``prod(group_sizes)``: for each level ℓ, the
     ``new_group`` of the ranks that share this rank's coordinates on the
     levels above ℓ.  Every rank must call it, and every rank creates every
     group in the same order (``new_group`` is collective).  For a
     ``GroupedTopology`` pass ``(n_workers,)``: its events lower over all
-    ranks."""
+    ranks.
+
+    ``device_mesh``: a ``DeviceMesh`` whose leading dims are the replica
+    dims, their product ``prod(group_sizes)``, and whose other dims (its
+    'model' dim; for the dry run's fsdp mapping its 'data' dim too) hold
+    the ranks of one worker.  The world is then ``prod(group_sizes)`` x
+    those ranks, the levels factor the replica dims in order (outermost
+    first), and a level's group also shares this rank's coordinates on
+    the worker's dims.  Axis names default to the replica dims' where the
+    levels are those dims, else to ``<dim><j>`` for the j-th level inside a
+    dim (``data0``, ``data1`` for (4, 4) over 'data'), and ``lvl<l>`` for a
+    level of one worker that spans no dim."""
     gs = tuple(int(g) for g in group_sizes)
+    model = 1
+    if device_mesh is not None:
+        dims = list(zip(device_mesh.mesh_dim_names, device_mesh.shape))
+        k, acc = 0, 1
+        while acc < math.prod(gs) and k < len(dims):
+            acc *= dims[k][1]
+            k += 1
+        if acc != math.prod(gs):
+            raise ValueError(f"the levels {gs} are not the leading dims of "
+                             f"the device mesh {dict(dims)}")
+        model = math.prod(size for _, size in dims[k:])
+        if axis_names is None:
+            axis_names = _level_names(gs, dict(dims[:k]))
     names = tuple(axis_names) if axis_names else level_axis_names(len(gs))
     if len(names) != len(gs):
         raise ValueError(f"{len(names)} axis names {names} for "
@@ -156,19 +215,94 @@ def make_hsgd_mesh(group_sizes: Sequence[int],
             "run under repro_torch.launch.mesh.launch (one process per "
             "worker) or call torch.distributed.init_process_group first")
     world, rank = dist.get_world_size(), dist.get_rank()
-    if world != math.prod(gs):
+    if world != math.prod(gs) * model:
+        per = f" x {model} ranks" if model > 1 else ""
         raise ValueError(f"a mesh of {gs} needs a world of "
-                         f"{math.prod(gs)} processes, one per worker; "
-                         f"this world has {world}")
+                         f"{math.prod(gs) * model} processes, one per "
+                         f"worker{per}; this world has {world}")
     groups: Dict[Tuple[str, ...], Any] = {}
     for level in range(1, len(gs) + 1):
         members = math.prod(gs[level - 1:])
-        for start in range(0, world, members):
-            ranks = list(range(start, start + members))
-            group = dist.new_group(ranks)
-            if rank in ranks:
-                groups[names[level - 1:]] = group
-    return HSGDMesh(gs, names, rank, groups)
+        for start in range(0, world // model, members):
+            for m in range(model):
+                ranks = [w * model + m for w in range(start, start + members)]
+                group = dist.new_group(ranks)
+                if rank in ranks:
+                    groups[names[level - 1:]] = group
+    return HSGDMesh(gs, names, rank, groups, model)
+
+
+def _level_names(gs: Tuple[int, ...],
+                 dims: Dict[str, int]) -> Tuple[str, ...]:
+    """A name per level of ``gs``, the levels factoring the replica
+    ``dims`` in order: a dim's name where one level is the whole dim,
+    ``<dim><j>`` for the j-th of several levels inside it, ``lvl<l>`` for
+    a trailing level of one worker."""
+    names, levels = [], list(gs)
+    for dim, size in dims.items():
+        taken = 0
+        while size > 1:
+            if not levels or size % levels[0]:
+                raise ValueError(f"the levels {gs} do not factor the "
+                                 f"replica dims {dims} in order")
+            size //= levels.pop(0)
+            taken += 1
+        names += [dim] if taken == 1 else [f"{dim}{j}" for j in range(taken)]
+    for size in levels:
+        if size != 1:
+            raise ValueError(f"the levels {gs} do not factor the replica "
+                             f"dims {dims} in order")
+        names.append(f"lvl{len(names) + 1}")
+    return tuple(names)
+
+
+def make_production_mesh(multi_pod: bool = False, device_type: str = "cpu"):
+    """The production ``DeviceMesh`` over the initialized default group:
+    256 ranks as (data=16, model=16), or 512 as (pod=2, data=16,
+    model=16): 'pod' carries H-SGD's global aggregation (the slow fabric
+    between nodes), 'data' the local ones, 'model' tensor parallelism
+    inside a worker.  The default group must have exactly that many ranks
+    (the dry run's fake world, :mod:`repro_torch.launch.dryrun`); this
+    never creates one.  ``device_type`` "cpu" places tensors of the CPU
+    and of the meta device, "cuda" those of the card.  Each dim's group is
+    named to the recorder (:func:`repro_torch.marks.name_groups`), so that
+    the cost model prices torch's functional collectives by their dims."""
+    from torch.distributed.device_mesh import init_device_mesh
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    if not dist.is_available() or not dist.is_initialized():
+        raise RuntimeError("make_production_mesh needs an initialized "
+                           f"default process group of {math.prod(shape)} "
+                           "ranks")
+    if dist.get_world_size() != math.prod(shape):
+        raise ValueError(f"the production mesh {dict(zip(axes, shape))} "
+                         f"needs a world of {math.prod(shape)} ranks; this "
+                         f"world has {dist.get_world_size()}")
+    return name_mesh_groups(init_device_mesh(device_type, shape,
+                                             mesh_dim_names=axes))
+
+
+def name_mesh_groups(device_mesh):
+    """Name each dim's process group of ``device_mesh`` to the recorder;
+    returns the mesh."""
+    marks.name_groups({device_mesh.get_group(a).group_name: (a,)
+                       for a in device_mesh.mesh_dim_names})
+    return device_mesh
+
+
+def replica_axes(mesh) -> tuple:
+    """Mesh axes carrying H-SGD worker replicas (everything but 'model');
+    ``mesh`` a ``DeviceMesh`` or any mesh with ``axis_names``."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is None:
+        names = mesh.axis_names
+    return tuple(a for a in names if a != "model")
+
+
+def n_replicas(mesh) -> int:
+    from repro_torch.launch.partitioning import mesh_axes
+    axes = mesh_axes(mesh)
+    return math.prod(axes[a] for a in replica_axes(mesh))
 
 
 def _rank_main(fn, rank: int, n_workers: int, backend: str, device: str,

@@ -22,18 +22,24 @@ them marks them, so the recorder can count each as one thing:
 
 With no recorder active each mark is a shared null context: a global read
 and nothing else.
+
+torch's own functional collectives (a DTensor's redistributions) are
+seen by the recorder as aten ops with a process group's name;
+:func:`name_groups` tells it which mesh axes each group spans.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Callable, Dict, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
 # the recorder of the call being recorded, or None (set by the walker)
 _recorder = None
 _NULL = contextlib.nullcontext()
+# process group name -> the mesh axes it spans (see name_groups)
+_group_axes: Dict[str, Tuple[str, ...]] = {}
 
 
 # the cost model's FLOP classes, each priced at its own rate: products of
@@ -99,3 +105,24 @@ def reduce(name: str, t: torch.Tensor, dtype: Optional[torch.dtype] = None):
     rec = _recorder
     return _NULL if rec is None else _Region(rec, "reduce", name, (), t,
                                              dtype)
+
+
+def name_groups(axes: Dict[str, Tuple[str, ...]]) -> None:
+    """Record the mesh axes each process group spans, by group name."""
+    _group_axes.update({k: tuple(v) for k, v in axes.items()})
+
+
+def forget_groups() -> None:
+    """Forget every named group (a group's name is reused by the next
+    world)."""
+    _group_axes.clear()
+
+
+def group_axes(group_name: str) -> Tuple[str, ...]:
+    """The mesh axes of the process group ``group_name``; raises for a
+    group that :func:`name_groups` did not name."""
+    if group_name not in _group_axes:
+        raise KeyError(f"process group {group_name!r} spans no named mesh "
+                       "axes: build the mesh with repro_torch.launch.mesh."
+                       "make_production_mesh or name_mesh_groups")
+    return _group_axes[group_name]

@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import dtensor_of, is_dtensor
 from repro_torch.kernels import attention as kattn
 from repro_torch.kernels import rglru_scan as krg
 from repro_torch.kernels import ssd_scan as kssd
@@ -126,7 +127,24 @@ def attention_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
 
 
 def _split_heads(x: torch.Tensor, n: int, dh: int) -> torch.Tensor:
+    if _uneven_heads(x, n):
+        # DTensor's view rule refuses to split a shard unevenly (qwen2-0.5b's
+        # 14 and 2 heads over 16 ranks); its split rule gathers the dim
+        # first, as the reference's GSPMD inserts its own collectives here.
+        # (A ``redistribute`` call cannot reach a DTensor inside vmap/grad.)
+        return torch.stack(torch.split(x, dh, dim=-1), dim=-2)
     return x.reshape(x.shape[:-1] + (n, dh))
+
+
+def _uneven_heads(x: torch.Tensor, n: int) -> bool:
+    """Is ``x`` a DTensor (or one under functorch's wrappers) whose last dim
+    is sharded over a mesh dim whose size does not divide ``n``?"""
+    d = dtensor_of(x)
+    if d is None:
+        return False
+    last, mesh = d.ndim - 1, d.device_mesh
+    return any(p.is_shard(last) and n % mesh.size(i)
+               for i, p in enumerate(d.placements))
 
 
 def _gqa_repeat(k: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -176,6 +194,38 @@ def _attn_core_chunked(q, k, v, mask, softcap, chunk: int) -> torch.Tensor:
     return torch.cat(outs, dim=-3)
 
 
+def _gqa_core(q, k, v, mask, *, n_rep: int, softcap: Optional[float],
+              chunk_q: int) -> torch.Tensor:
+    """The plain attention of q (..., Sq, Hq, Dh) over GQA k, v
+    (..., Sk, Hq / n_rep, Dh)."""
+    return _attn_core(q, _gqa_repeat(k, n_rep), _gqa_repeat(v, n_rep), mask,
+                      softcap, chunk_q=chunk_q)
+
+
+def _per_rank(fn, q, k, v, *rest) -> torch.Tensor:
+    """``fn(q, k, v, *rest)``, an attention over (B, S, H, D) tensors.  On
+    DTensors it runs on each rank's shards through ``local_map`` (the
+    kernel's wrapper takes plain tensors, and DTensor's search for an
+    einsum's strategy grows past minutes on a 3-D mesh): the shards are
+    whole attention problems where q, k and v are sharded alike on the
+    batch or the head dim (every rank's q heads then read its own kv
+    heads); any other placement is replicated first.  ``rest`` (a mask)
+    is plain."""
+    if not is_dtensor(q):
+        return fn(q, k, v, *rest)
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+    mesh = q.device_mesh
+    want = tuple(p if p == k.placements[i] == v.placements[i]
+                 and any(p.is_shard(d) for d in (0, 2)) else Replicate()
+                 for i, p in enumerate(q.placements))
+    q, k, v = (t if t.placements == want else t.redistribute(mesh, want)
+               for t in (q, k, v))
+    return local_map(fn, out_placements=(want,), device_mesh=mesh,
+                     in_placements=(want,) * 3 + (None,) * len(rest))(
+        q, k, v, *rest)
+
+
 def causal_mask(sq: int, sk: int, window: Optional[int] = None,
                 q_offset: int = 0, device=None) -> torch.Tensor:
     """bool (sq, sk): True where attend. q position i attends k position j iff
@@ -191,7 +241,23 @@ def causal_mask(sq: int, sk: int, window: Optional[int] = None,
 def _project(x: torch.Tensor, w: torch.Tensor,
              b: Optional[torch.Tensor]) -> torch.Tensor:
     y = x @ w.to(x.dtype)
-    return y if b is None else y + b.to(x.dtype)
+    return y if b is None else y + _bias_beside(y, b.to(x.dtype))
+
+
+def _bias_beside(y: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``b`` ready to add to ``y``: where ``y`` is a partial sum (a
+    product over a sharded contraction dim) a DTensor bias sharded on the
+    same mesh dim is replicated there first.  DTensor may otherwise plan
+    to turn the shard into a partial sum, which torch 2.11 cannot run; a
+    replicated bias becomes one without moving data.  Plain tensors (and
+    DTensors under functorch's wrappers) come back as they are."""
+    if not (is_dtensor(y) and is_dtensor(b)):
+        return b
+    from torch.distributed.tensor import Replicate
+    want = [Replicate() if py.is_partial() and pb.is_shard() else pb
+            for py, pb in zip(y.placements, b.placements)]
+    return b if want == list(b.placements) else b.redistribute(
+        b.device_mesh, want)
 
 
 def attention_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
@@ -223,17 +289,34 @@ def attention_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
             q = apply_rope(q, positions, cfg.rope_theta)
     if (cfg.use_kernels and kv is None and not explicit_mask
             and cfg.attn_logit_softcap is None and x.ndim == 3):
-        out = kattn.flash_attention(q, k, v, causal=True, window=window)
+        out = _per_rank(functools.partial(
+            kattn.flash_attention, causal=True, window=window), q, k, v)
     else:
         if mask is None and kv is None:
             mask = causal_mask(x.shape[-2], x.shape[-2], window,
                                device=x.device)
-        k = _gqa_repeat(k, nh // nkv)
-        v = _gqa_repeat(v, nh // nkv)
-        out = _attn_core(q, k, v, mask, cfg.attn_logit_softcap,
-                         chunk_q=cfg.attn_chunk_q)
-    out = out.reshape(out.shape[:-2] + (nh * dh,))
+        out = _per_rank(functools.partial(
+            _gqa_core, n_rep=nh // nkv, softcap=cfg.attn_logit_softcap,
+            chunk_q=cfg.attn_chunk_q), q, k, v, mask)
+    out = _merge_heads(out)
     return out @ p["wo"].to(x.dtype)
+
+
+def _merge_heads(out: torch.Tensor) -> torch.Tensor:
+    """(..., H, D) -> (..., H * D).  A DTensor sharded on D (a decode
+    cache's head dim on 'model') is replicated there first: DTensor
+    refuses to flatten across an inner sharded dim (torch 2.11); under
+    functorch's wrappers, where nothing can be redistributed, the heads
+    are concatenated instead, whose rule gathers the dim."""
+    d = dtensor_of(out)
+    if d is not None and any(p.is_shard(d.ndim - 1) for p in d.placements):
+        if d is not out:
+            return torch.cat(torch.unbind(out, dim=-2), dim=-1)
+        from torch.distributed.tensor import Replicate
+        out = out.redistribute(out.device_mesh, [
+            Replicate() if p.is_shard(out.ndim - 1) else p
+            for p in out.placements])
+    return out.reshape(out.shape[:-2] + (out.shape[-2] * out.shape[-1],))
 
 
 def attention_kv(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
@@ -267,7 +350,7 @@ def attention_decode(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     v = _gqa_repeat(v_cache.to(x.dtype), nh // nkv)
     mask = (cache_positions <= position[..., None]) & (cache_positions >= 0)
     out = _attn_core(q, k, v, mask[..., None, :], cfg.attn_logit_softcap)
-    out = out.reshape(out.shape[:-2] + (nh * dh,))
+    out = _merge_heads(out)
     return out @ p["wo"].to(x.dtype)
 
 

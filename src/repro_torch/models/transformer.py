@@ -42,12 +42,28 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.device import DeviceLike, is_dtensor, resolve_device
 from repro_torch.models import layers as L
 
 Params = Dict[str, Any]
 
 _ATTN_KINDS = ("global", "local")
+
+
+def constrain_acts(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Optional residual-stream sharding constraint (cfg.act_pspec), a §Perf
+    knob: pins the layout the residual keeps between layers.  A DTensor
+    residual is redistributed to ``act_pspec``'s placements on its own
+    mesh, where the reference asks GSPMD for a sharding constraint; a
+    plain tensor, or ``act_pspec`` None, comes back unchanged (the
+    reference's no-mesh case)."""
+    if cfg.act_pspec is None or not is_dtensor(x):
+        return x
+    from repro_torch.launch.partitioning import placements
+    want = placements(tuple(cfg.act_pspec), x.device_mesh)
+    if want == list(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, want)
 
 
 def _tree_map(fn, tree):
@@ -356,6 +372,15 @@ class DecoderLM:
         for j, kind in enumerate(cfg.pattern_remainder):
             yield params["rem"][j], kind, None, j
 
+    def _unit_edge(self, x, u: Optional[int], j: int, edge: int):
+        """:func:`constrain_acts` where the reference's unit body applies
+        it: before a pattern unit's first block (``edge`` 0) and after its
+        last (``edge`` -1); the remainder's blocks are not constrained."""
+        pattern = range(len(self.cfg.block_pattern))
+        if u is None or j != pattern[edge]:
+            return x
+        return constrain_acts(x, self.cfg)
+
     # ---- training --------------------------------------------------------
     def forward(self, params: Params,
                 tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -364,8 +389,10 @@ class DecoderLM:
         x = self._embed(params, tokens)
         positions = positions_of(b, s, x.device)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for p, kind, _, _ in self._blocks(params):
+        for p, kind, u, j in self._blocks(params):
+            x = self._unit_edge(x, u, j, 0)
             x, a = block_apply(p, x, kind, self.cfg, positions=positions)
+            x = self._unit_edge(x, u, j, -1)
             aux = aux + a
         return self._logits(params, x), aux
 
@@ -401,8 +428,10 @@ class DecoderLM:
         unit_caches = [[] for _ in cfg.block_pattern]
         rem_caches = []
         for p, kind, u, j in self._blocks(params):
+            x = self._unit_edge(x, u, j, 0)
             x, c = block_prefill(p, x, kind, cfg, positions=positions,
                                  max_len=max_len)
+            x = self._unit_edge(x, u, j, -1)
             (unit_caches[j] if u is not None else rem_caches).append(c)
         units = tuple(_stack(c) for c in unit_caches) \
             if cfg.num_pattern_units else ()

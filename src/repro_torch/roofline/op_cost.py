@@ -24,7 +24,9 @@ work, every collective with its result.  The reference's rules
                     the CPU the plain version runs), so a call prices the
                     same on either device
   * collectives   — result bytes (an all-gather its gathered size), cross-
-                    node when the op's axes hold the hierarchy's top level
+                    node when the op's axes hold the hierarchy's top level;
+                    ``MeshAxes`` calls and torch's functional collectives
+                    alike (their waits move nothing more)
 
 Eager records every iteration of a loop, so the reference's trip-count fix
 (``_trip``) holds by construction.
@@ -43,7 +45,12 @@ from repro_torch.marks import FLOP_CLASSES
 COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
                "collective-permute")
 _COLLECTIVE_KIND = {"psum": "all-reduce", "pmax": "all-reduce",
-                    "all_gather": "all-gather"}
+                    "all_gather": "all-gather",
+                    # torch's functional collectives (DTensor's)
+                    "all_reduce": "all-reduce",
+                    "all_gather_into_tensor": "all-gather",
+                    "reduce_scatter_tensor": "reduce-scatter",
+                    "all_to_all_single": "all-to-all"}
 
 # the contraction operand of each product (its last dim is contracted)
 _PRODUCTS = {"mm": 0, "bmm": 0, "mv": 0, "dot": 0, "addmm": 1, "baddbmm": 1,
@@ -72,7 +79,10 @@ _VIEWS = {
     "view", "_unsafe_view", "expand", "permute", "t", "transpose", "slice",
     "select", "as_strided", "alias", "unsqueeze", "squeeze", "detach",
     "split", "split_with_sizes", "unbind", "narrow", "unfold", "diagonal",
-    "_reshape_alias", "lift_fresh",
+    "_reshape_alias", "lift_fresh", "chunk",
+    # a functional collective's wait and autograd wrapper: its bytes are
+    # the collective's
+    "wait_tensor", "_wrap_tensor_autograd",
     # allocations: nothing is read or written yet
     "empty", "empty_like", "empty_strided", "new_empty",
     "new_empty_strided",
