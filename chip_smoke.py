@@ -261,7 +261,10 @@ or of the JAX package.  It
    ``topk_decode_reduce`` once per sync on every rank, records within
    MESH_ATOL of the sim's.  (d) ``launch.serve --ckpt-dir`` on a params
    checkpoint written on the card: greedy tokens equal to the same params'
-   in memory;
+   in memory.  (e) qwen2-0.5b at full width at 4,096 tokens a sequence
+   (the chunked attention, each chunk rematerialized), remat off and on
+   (see the note at TRAIN_LONG): peak GB and steps/s, the first step's CE
+   bit for bit, a float32 gradient within REMAT_RTOL of the largest;
 15. analysis phase: the audit of ``repro_torch.analysis`` on the card
    (see the note at ANALYSIS_BUDGET_S).  The matrix's nine sim configs
    audited on the card with the kernels equal their CPU audits with the
@@ -295,13 +298,20 @@ or of the JAX package.  It
    (``repro_torch.launch.dryrun``) on the card, under torch's fake process
    group of 256 ranks (see the note at DRYRUN_ARCH): ``flash_attention``
    against its plain version at DRYRUN_SLICE (float32 and bfloat16);
-   qwen2-0.5b's prefill_32k with the kernel and decode_32k (bfloat16, the
-   config's dtype), rank 0's shards
+   qwen2-0.5b's prefill_32k with the kernel in bfloat16 (the config's
+   dtype) and float32 (its attention regions priced by the kernel's
+   design) and decode_32k, rank 0's shards
    materialized on the card, each priced on the card and on ``meta`` (the
    reports equal), its bound at most its measurement, the kernel's
    launches equal its regions; train_4k on both meshes recorded on
    ``meta`` by child processes meanwhile; the four records written to
    DRYRUN_OUT and rendered by ``experiments.roofline_table``;
+15c. hillclimb phase: the hillclimb's twin
+   (``repro_torch.experiments.hillclimb``) for qwen2-0.5b|train_4k on the
+   card's torch, one child process an iteration, started with the
+   roofline phase (see the note at HILLCLIMB_PAIR): every iteration
+   recorded,
+   the bf16 sync's bytes half the f32 sync's, dp_only's params whole;
 16. writes the records below, with the card's line, to
    ``chiprun_out/chip_smoke.json``, then prints one ``{"ssm": ...}`` JSON
    line with the SSM throughputs, one ``{"moe_encdec": ...}`` line, one
@@ -309,7 +319,8 @@ or of the JAX package.  It
    line, one ``{"runtime": ...}`` line, one ``{"obs": ...}`` line, one
    ``{"population": ...}`` line, one ``{"train": ...}`` line, one
    ``{"analysis": ...}`` line, one ``{"roofline": ...}`` line, one
-   ``{"dryrun": ...}`` line, one ``{"kernels": [...]}`` JSON line (all
+   ``{"dryrun": ...}`` line, one ``{"hillclimb": ...}`` line, one
+   ``{"kernels": [...]}`` JSON line (all
    nine kernels), then the result line ``{"ok": true, "device": {...}}``
    last.
 
@@ -321,7 +332,7 @@ builds every kernel and runs only the named phases (comma-separated, in
 the order above: kernels, main_path, topk_kernel, topk_sim, mesh,
 attention, serving, ssm_kernel, ssm_forward, ssm_serving, moe_encdec,
 experiments, runtime, obs, population, train, analysis, roofline,
-dryrun), writes their
+dryrun, hillclimb), writes their
 records to ``chiprun_out/chip_smoke_phases.json``, prints one JSON line
 per phase and the result line last.  The ``kernels`` line needs every
 phase, so it is printed only by a run without ``--phase``.
@@ -362,11 +373,6 @@ SIGN_CASES = (((8, 2120), SIGN_BLOCK), ((8, 2**24 + 77), SIGN_BLOCK),
               ((8, 2120), 64), ((8, 2120), 1000), ((8, 2120), 24))
 HBM_BYTES_PER_S = H100.hbm_bw
 F32_OPS_PER_S = H100.f32_flops
-# the float32 attention kernel's tensor-core operations per visible pair
-# (six bf16 plane products each for Q.K^T and P.V) and its split
-# pre-pass's bytes per element of q, k and v (read 4, write 6)
-F32_SPLIT_OPS_PER_D = 24
-F32_SPLIT_BYTES = 10
 BF16_OPS_PER_S = H100.peak_flops
 # flash attention cases: (B, Sq, Sk, Hq, Hk, D, dtype, causal, window);
 # (a), (b), (c) and (d), the first ATTN_TIMED, are timed
@@ -597,6 +603,26 @@ TRAIN_REDUCED = (
 )
 TRAIN_MESH_WORKERS = 4
 TRAIN_BUDGET_S = 180.0
+# (e) qwen2-0.5b at full width at train_4k's 4,096 tokens a sequence, one
+# sequence a worker.  Every attention layer runs the chunked plain path
+# (4,096 > attn_chunk_q = 512), each chunk rematerialized, so no chunk's
+# float32 probabilities (0.94 GB a layer a sequence) are kept for the
+# backward.  In the config's bfloat16, 2 of TRAIN_ARGV's 4 workers (at 4,
+# and at 2 before the recompute was detached from torch.func.grad's
+# tape, the remat-off step ran out of the card's 80 GB, PERF.md §6):
+# TRAIN_LONG_STEPS local steps with remat off and then on from the
+# same params, under torch.use_deterministic_algorithms, the first step's
+# CE bit for bit (the forward is the same), peak GB beside
+# TRAIN_LONG_PEAK_GB and steps/s of the last step printed.  Held as the
+# CPU tests hold remat (tests/test_torch_remat.py): in float32, one
+# worker's ``torch.func.grad`` of ``loss`` at the same params, remat on
+# against off, within REMAT_RTOL of the largest entry (bit for bit where
+# it is, printed); a bfloat16 gradient would round a 1e-7 difference to
+# whole ulps of 2^-8
+TRAIN_LONG = ("--workers", "2", "--batch", "1", "--seq", "4096")
+TRAIN_LONG_STEPS = 2
+TRAIN_LONG_PEAK_GB = {"remat off": (45.0, 70.0), "remat on": (15.0, 28.0)}
+REMAT_RTOL = 1e-6
 # the MoE and encoder-decoder phase, at full width: olmoe-1b-7b (f32 and
 # bf16: MOE_BATCH prompts of MOE_PROMPT tokens, MOE_GEN greedy tokens, and
 # loss on MOE_BATCH x MOE_PROMPT tokens; 4 MoE groups of 2048 tokens a
@@ -1814,7 +1840,8 @@ def attention_timing(torch, kattn, ref, q, k, v, want, at):
     pairs = kattn.visible_pairs(sq, sk, causal, window)
     w = kattn.flash_attention_work(b, sq, sk, hq, hk, d, q.dtype, causal,
                                    window)
-    flops, nbytes = sum(w.flops.values()), w.bytes
+    # the function's products (4*D a visible pair), whatever the design
+    flops, nbytes = 4 * b * hq * d * pairs, w.bytes
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     if window is None or window >= sk:
         def library():
@@ -1850,21 +1877,17 @@ def attention_timing(torch, kattn, ref, q, k, v, want, at):
              q, k, v, causal=causal, window=window), 2, reps=10),
          "library_ms": time_ms(torch, library, 5),
          "f32_core_ms": flops / F32_OPS_PER_S * 1e3}
+    t["bound_ms"], t["bound_by"] = work_ms(w)
     if dtype == "bfloat16":
-        t["bound_ms"], t["bound_by"] = work_ms(w)
         t["bound_6d_ms"] = bound_ms(nbytes, flops * 3 // 2,
                                     BF16_OPS_PER_S)[0]
         t["bound_8d_ms"] = bound_ms(nbytes, flops * 2, BF16_OPS_PER_S)[0]
         extra = (f" at 4*D, {t['bound_6d_ms']:.5f} ms at 6*D, "
                  f"{t['bound_8d_ms']:.5f} ms at 8*D")
     else:
-        elems = q.numel() + k.numel() + v.numel()
-        t["split_bound_ms"] = (F32_SPLIT_BYTES * elems / HBM_BYTES_PER_S
-                               * 1e3)
-        launch_ms, t["bound_by"] = bound_ms(
-            6 * elems + 4 * q.numel(), flops * F32_SPLIT_OPS_PER_D // 4,
-            BF16_OPS_PER_S)
-        t["bound_ms"] = t["split_bound_ms"] + launch_ms
+        split, launch = w.stages
+        t["split_bound_ms"] = work_ms(split)[0]
+        launch_ms = work_ms(launch)[0]
         t["launches_ms"] = stage_ms(torch, kernel)
         extra = (f" (24*D on the tensor cores, {launch_ms:.5f}, after the "
                  f"split pre-pass's bytes, {t['split_bound_ms']:.5f}); "
@@ -3589,6 +3612,96 @@ def train_mesh_rank(rank: int, argv):
     return {"history": history, "launches": everyone}
 
 
+def train_long_leg(torch):
+    """(e) of the train phase (see TRAIN_LONG): its record."""
+    import dataclasses
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_leaves
+    args = train.build_argparser().parse_args(TRAIN_ARGV + TRAIN_LONG)
+    spec = train.make_spec(args)
+    cfg = get_config(args.arch)
+    stream = train.make_stream(args, cfg.vocab_size, spec.n_workers, "cuda")
+    batches = [stream(t) for t in range(TRAIN_LONG_STEPS)]
+    out = {"allocated_before_gb": torch.cuda.memory_allocated() / 1e9}
+    print(f"train (e): {out['allocated_before_gb']:.3f} GB allocated "
+          "before the leg", flush=True)
+
+    def fresh():
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    for remat in (False, True):
+        label = f"remat {'on' if remat else 'off'}"
+        model = build_model(dataclasses.replace(cfg, remat=remat))
+        eng = train.make_engine(args, model, spec)
+        state = eng.init_from_params(train.init_params(model, args.seed,
+                                                       "cuda"),
+                                     device="cuda")
+        step = eng.step_fn(None)
+        fresh()
+        times, ces = [], []
+        with _deterministic(torch, f"train (e) {label}"):
+            for batch in batches:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, metrics = step(state, batch)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                ces.append(metrics["ce"].tolist())
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        lo, hi = TRAIN_LONG_PEAK_GB[label]
+        out[label] = {"peak_gb": peak, "predicted_peak_gb": [lo, hi],
+                      "step_s": times, "steps_per_s": 1.0 / times[-1],
+                      "tokens_per_s": spec.n_workers * args.batch
+                      * args.seq / times[-1], "ce": ces}
+        print(f"train (e) qwen2-0.5b bfloat16, {spec.n_workers} x "
+              f"{args.batch} x {args.seq} tokens, {label}: peak {peak:.3f} "
+              f"GB (predicted {lo}-{hi}), step s {times}, "
+              f"{out[label]['steps_per_s']:.4f} steps/s, ce {ces}",
+              flush=True)
+        del state, eng, step, model, metrics
+        fresh()
+    off, on = out["remat off"]["ce"], out["remat on"]["ce"]
+    check(off[0] == on[0], f"train (e): remat changes the first step's CE: "
+          f"{off[0]} against {on[0]}")
+
+    # the gradient, in float32, of one worker's loss at the same params
+    f32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    params = train.init_params(build_model(f32), args.seed, "cuda")
+    one = {k: v[0] for k, v in batches[0].items()}
+    grads = {}
+    for remat in (False, True):
+        model = build_model(dataclasses.replace(f32, remat=remat))
+        fresh()
+        g = torch.func.grad(lambda p: model.loss(p, one)[0])(params)
+        torch.cuda.synchronize()
+        grads[remat] = tree_leaves(g)
+        out[f"float32 grad peak_gb remat {'on' if remat else 'off'}"] = \
+            torch.cuda.max_memory_allocated() / 1e9
+        del g
+    top = max(float(t.abs().max()) for t in grads[False])
+    gap = max(float((a - b).abs().max())
+              for a, b in zip(grads[True], grads[False]))
+    same = all(torch.equal(a, b) for a, b in zip(grads[True], grads[False]))
+    out["grad_max_abs_diff"], out["grad_bitwise"] = gap, same
+    out["grad_largest"] = top
+    print(f"train (e): float32 gradient of one worker's loss, remat on "
+          f"against off: max |diff| {gap!r} of the largest {top!r} "
+          f"({gap / top!r}), bit for bit {same}; peaks "
+          f"{out['float32 grad peak_gb remat off']:.3f} / "
+          f"{out['float32 grad peak_gb remat on']:.3f} GB", flush=True)
+    check(gap <= REMAT_RTOL * top, f"train (e): remat moves the gradient by "
+          f"{gap} > {REMAT_RTOL} x {top}")
+    del grads, params
+    fresh()
+    return out
+
+
 def train_phase(torch, kern, ref):
     """H-SGD training of the LMs through ``repro_torch.launch.train`` on
     the card, (a) to (d) as set out at TRAIN_ARGV.  Returns the record."""
@@ -3913,6 +4026,10 @@ def train_phase(torch, kern, ref):
     check(same, "train (d): serve --ckpt-dir gives other tokens than the "
           "same params in memory")
     shutil.rmtree(root)
+    del model, p1, res, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["long"] = train_long_leg(torch)
     rec["wall_s"] = time.perf_counter() - t_phase
     print(f"train phase: {rec['wall_s']:.1f} s (budget {TRAIN_BUDGET_S} s)",
           flush=True)
@@ -4179,10 +4296,10 @@ KERNEL_BOUNDS_MS = {
     "flash_attention bfloat16 (b)": 0.02606,
     "flash_attention bfloat16 (c)": 0.04347,
     "flash_attention bfloat16 (d)": 0.04006,
-    "flash_attention float32 (a)": 0.22458,
-    "flash_attention float32 (b)": 0.38475,
-    "flash_attention float32 (c)": 0.64167,
-    "flash_attention float32 (d)": 0.51333,
+    "flash_attention float32 (a)": 0.11946,
+    "flash_attention float32 (b)": 0.20647,
+    "flash_attention float32 (c)": 0.33594,
+    "flash_attention float32 (d)": 0.35890,
     "ssd_scan bfloat16": 0.01651, "ssd_scan float32": 0.10938,
     "rglru_scan": 0.07512,
 }
@@ -4481,6 +4598,23 @@ DRYRUN_META_PAIRS = (("train_4k", "single"), ("train_4k", "multi"))
 DRYRUN_SLICE = (1, 32768, 2, 1, 64)      # (B, S, Hq, Hk, D)
 DRYRUN_CHILD_TIMEOUT = 600.0
 DRYRUN_BUDGET_S = 40.0
+# hillclimb phase: the hillclimb's twin (``repro_torch.experiments.
+# hillclimb``) on the card's torch for the reference's qwen2-0.5b|train_4k
+# pair, its iterations recorded on ``meta`` under the fake world of 512
+# ranks, one child process an iteration, started with the first of the
+# HILLCLIMB_BESIDE phases that runs (on the host's other cores while the
+# card runs those phases), or by the phase itself when run alone.  Every
+# iteration must be recorded without error; dp_only+bf16_sync's
+# global-sync param all-reduce must move exactly half of dp_only's (2 B a
+# param for 4); dp_only's rank-0 params must be the whole params (2 B a
+# param in bfloat16): with model_shard off nothing is left sharded over
+# 'model'
+HILLCLIMB_PAIR = "qwen2-0.5b|train_4k"
+HILLCLIMB_OUT = ROOT / "build" / "hillclimb_torch.json"
+HILLCLIMB_PARTS = ROOT / "build" / "hillclimb_parts"
+HILLCLIMB_CHILD_TIMEOUT = 900.0
+HILLCLIMB_BESIDE = ("roofline", "dryrun")
+_hillclimb_children = {}
 
 
 def _dryrun_children():
@@ -4498,6 +4632,92 @@ def _dryrun_children():
              "--out", str(out)], cwd=ROOT, env=env,
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return procs
+
+
+def start_hillclimb():
+    """Start one ``python -m repro_torch.experiments.hillclimb`` child per
+    iteration of HILLCLIMB_PAIR, once; the children by iteration name."""
+    import shutil
+    from repro_torch.experiments import hillclimb
+    if _hillclimb_children:
+        return _hillclimb_children
+    shutil.rmtree(HILLCLIMB_PARTS, ignore_errors=True)
+    HILLCLIMB_PARTS.mkdir(parents=True)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep \
+        + env.get("PYTHONPATH", "")
+    for name, *_ in hillclimb.ITERATIONS[HILLCLIMB_PAIR]:
+        out = HILLCLIMB_PARTS / f"{name}.json"
+        _hillclimb_children[name] = (out, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.experiments.hillclimb",
+             "--pair", HILLCLIMB_PAIR.split("|")[0], "--name", name,
+             "--force", "--limit-s", str(HILLCLIMB_CHILD_TIMEOUT - 60),
+             "--out", str(out)], cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    return _hillclimb_children
+
+
+def hillclimb_phase(torch):
+    """The hillclimb leg (see the note at HILLCLIMB_PAIR); returns its
+    record."""
+    from repro_torch.configs import get_config
+    t_phase = time.perf_counter()
+    children = dict(start_hillclimb())
+    records, logs = {}, {}
+    try:
+        for name, (path, proc) in children.items():
+            logs[name], _ = proc.communicate(
+                timeout=HILLCLIMB_CHILD_TIMEOUT)
+            check(proc.returncode == 0, f"hillclimb {name}: exited "
+                  f"{proc.returncode}:\n{logs[name][-3000:]}")
+            records.update(json.loads(path.read_text()))
+    finally:
+        for _, proc in children.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        _hillclimb_children.clear()
+    HILLCLIMB_OUT.write_text(json.dumps(records, indent=1))
+    key = f"{HILLCLIMB_PAIR}|{{}}".format
+    check(len(records) == len(children) and not any(
+        "error" in r for r in records.values()),
+          f"hillclimb: records {sorted(records)} or an error in them")
+
+    def sync_all_reduce(name):
+        steps = records[key(name)]["steps"]
+        return steps["global_sync"]["coll_by_kind"]["all-reduce"] \
+            - steps["local"]["coll_by_kind"]["all-reduce"]
+    cfg = get_config(HILLCLIMB_PAIR.split("|")[0])
+    n_params = cfg.param_count()
+    embed = cfg.vocab_size * cfg.d_model
+    dp, dp16 = sync_all_reduce("dp_only"), \
+        sync_all_reduce("dp_only+bf16_sync")
+    held = records[key("dp_only")]["rank0_param_bytes"]
+    # DTensor may return a leaf's update sharded like its gradient (on
+    # torch 2.13 the tied embedding's, over 'model' by the vocabulary): the
+    # sync then moves that leaf's shard, and the pin gathers it after
+    print(f"hillclimb: global-sync param all-reduce dp_only {dp!r} B, "
+          f"dp_only+bf16_sync {dp16!r} B (hand: the whole params "
+          f"{4 * n_params}, or with the embedding's update sharded over "
+          f"'model' {4 * (n_params - embed) + 4 * embed // 16}); dp_only's "
+          f"rank-0 params {held} B (hand: {2 * n_params})", flush=True)
+    check(dp > 0 and dp16 * 2 == dp,
+          f"hillclimb: the global sync all-reduces {dp} B (f32) and {dp16} "
+          f"B (bf16); want the second half the first")
+    check(held == 2 * n_params, f"hillclimb: dp_only's rank 0 holds {held} "
+          f"B of params; want the whole params, {2 * n_params}")
+    out = {"records": records}
+    for k, r in records.items():
+        a = r["amortized"]
+        print(f"hillclimb {k}: amortized compute {a['compute_s']!r} s, "
+              f"memory {a['memory_s']!r} s, collective "
+              f"{a['collective_s']!r} s ({a['dominant']}); rank-0 resident "
+              f"{r['rank0_resident_gb']!r} GB; collective GB intra "
+              f"{r['coll_intra_gb']!r}, cross {r['coll_cross_gb']!r}; "
+              f"recorded in {r['wall_s']} s", flush=True)
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"hillclimb phase: {out['wall_s']:.1f} s of waiting", flush=True)
+    return out
 
 
 def _dryrun_slice(torch, kattn, ref):
@@ -4573,10 +4793,11 @@ def dryrun_phase(torch, kattn, ref):
         results, shares = {}, {}
         with D.fake_world(256):
             mesh = make_production_mesh(False, device_type="cuda")
-            # the config's dtype; float32 at this shape is held on the
-            # slice only: priced whole, its f32 attention regions (at the
-            # float32 rate) bound it above its measured time (PERF.md §6)
+            # prefill_32k in float32 too, priced whole: its attention
+            # regions by the kernel's design (the split pre-pass, then
+            # 24*D products on the tensor cores)
             for sname, dtype in (("prefill_32k", base.dtype),
+                                 ("prefill_32k", "float32"),
                                  ("decode_32k", base.dtype)):
                 cfg = dataclasses.replace(base, dtype=dtype,
                                           param_dtype=dtype)
@@ -4681,7 +4902,7 @@ def profile_phase(torch, kattn):
 PHASES = ("kernels", "main_path", "topk_kernel", "topk_sim", "mesh",
           "attention", "serving", "ssm_kernel", "ssm_forward", "ssm_serving",
           "moe_encdec", "experiments", "runtime", "obs", "population",
-          "train", "analysis", "roofline", "dryrun")
+          "train", "analysis", "roofline", "dryrun", "hillclimb")
 
 
 def parse_args(argv):
@@ -4771,6 +4992,7 @@ def main() -> int:
         _build.build("flash_attention")
         print(json.dumps({"profile": profile_phase(torch, kattn)}))
         return 0
+    chosen = PHASES if args.phase is None else args.phase
     phases = {
         "kernels": lambda: codec_kernel_phases(torch, kern, ref),
         "main_path": lambda: main_path_phase(torch, kern, ref),
@@ -4794,9 +5016,9 @@ def main() -> int:
         "analysis": lambda: analysis_phase(torch, kern, ref),
         "roofline": lambda: roofline_phase(torch, kern, kattn, kssd, krg),
         "dryrun": lambda: dryrun_phase(torch, kattn, ref),
+        "hillclimb": lambda: hillclimb_phase(torch),
     }
     assert tuple(phases) == PHASES
-    chosen = PHASES if args.phase is None else args.phase
     try:
         print(card_line(), flush=True)
         t0 = time.perf_counter()
@@ -4828,6 +5050,8 @@ def main() -> int:
               "UTMALDG")
         res = {}
         for name in chosen:
+            if name in HILLCLIMB_BESIDE and "hillclimb" in chosen:
+                start_hillclimb()
             t0 = time.perf_counter()
             res[name] = phases[name]()
             print(f"phase {name}: {time.perf_counter() - t0:.1f} s",
@@ -4855,7 +5079,8 @@ def main() -> int:
     moe_encdec, experiments = res["moe_encdec"], res["experiments"]
     runtime, obs, population = res["runtime"], res["obs"], res["population"]
     trained, analysis = res["train"], res["analysis"]
-    roofline, dryrun = res["roofline"], res["dryrun"]
+    roofline, dryrun, hillclimb = res["roofline"], res["dryrun"], \
+        res["hillclimb"]
     for phase in (mesh, runtime, obs, population, trained, analysis):
         for name, by_run in phase["launches"].items():
             launches[name].update(by_run)
@@ -4971,6 +5196,8 @@ def main() -> int:
                       if k not in ("launches", "records")}},
         {"dryrun": {k: v for k, v in dryrun.items()
                     if k not in ("launches", "records")}},
+        {"hillclimb": {k: v for k, v in hillclimb.items()
+                       if k != "records"}},
         {"kernels": kernels}]
     # the whole record also in a file: the lines outgrow a terminal's tail
     (out_dir / "chip_smoke.json").write_text(

@@ -9,6 +9,14 @@ import torch
 
 DeviceLike = Union[str, torch.device]
 
+# whether this torch's DTensor flattens two dims whose inner one is
+# sharded (2.13 does, with a strided shard; 2.11 raises; 2.12 is
+# untried).  An older one needs two work-arounds in the dry run's
+# training programs: ``models.layers.token_first`` and the contiguous
+# output gradients of ``models.remat``.
+DTENSOR_FLATTENS_SHARDED = torch.torch_version.TorchVersion(
+    torch.__version__) >= (2, 13)
+
 
 def resolve_device(device: DeviceLike = "cuda") -> torch.device:
     """``device`` as a ``torch.device``; raises when CUDA is asked for and
@@ -50,3 +58,80 @@ def dtensor_of(x):
     while _functorch.is_functorch_wrapped_tensor(x):
         x = _functorch.get_unwrapped(x)
     return x if is_dtensor(x) else None
+
+
+def dtensor_layout(x):
+    """``(dtensor, placements)``: the DTensor that ``x`` is or that
+    functorch's wrappers hold inside it, and its placements in ``x``'s own
+    dims (a ``vmap`` level's batch dim taken out, so ``Shard(d)`` names
+    dim ``d`` of ``x`` as the caller sees it).  None when there is no
+    DTensor, or when a mapped batch dim is itself sharded."""
+    if sys.modules.get("torch.distributed.tensor") is None:
+        return None
+    from torch._C import _functorch
+    from torch.distributed.tensor import Shard
+    dims = list(range(x.ndim))          # x's dims at each physical dim
+    while _functorch.is_functorch_wrapped_tensor(x):
+        if _functorch.is_batchedtensor(x):
+            dims.insert(_functorch.maybe_get_bdim(x), None)
+        x = _functorch.get_unwrapped(x)
+    if not is_dtensor(x):
+        return None
+    out = []
+    for p in x.placements:
+        if p.is_shard():
+            if dims[p.dim] is None:
+                return None
+            p = Shard(dims[p.dim])
+        out.append(p)
+    return x, out
+
+
+def redistribute(x, placements):
+    """``x``, a DTensor or one under functorch's wrappers, moved to
+    ``placements`` (in ``x``'s own dims, :func:`dtensor_layout`), its
+    gradient moved back to ``x``'s placements (a partial sum's to
+    replicated); anything else, or a DTensor already so placed, comes
+    back as it is.
+    ``DTensor.redistribute`` cannot reach a DTensor under the wrappers of
+    ``vmap`` and ``grad`` (the H-SGD executors' local update); this can."""
+    layout = dtensor_layout(x)
+    if layout is None or list(placements) == layout[1]:
+        return x
+    from torch.distributed.tensor import Replicate
+    # the gradient of a partial sum is whole on every rank
+    back = [Replicate() if p.is_partial() else p for p in layout[1]]
+    return _Redistribute.apply(x, layout[0].device_mesh, list(placements),
+                               back)
+
+
+class _Redistribute(torch.autograd.Function):
+    """A DTensor ``x`` to placements ``want`` on ``mesh``, its gradient
+    back to ``back`` (both in ``x``'s dims at the level of the call).  The
+    ``vmap`` rule unwraps a batch level and shifts the placements past
+    its batch dim, so that the forward meets the DTensor itself."""
+
+    @staticmethod
+    def forward(x, mesh, want, back):
+        return x.redistribute(mesh, want)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, ctx.mesh, ctx.want, ctx.back = inputs
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_Redistribute.apply(g, ctx.mesh, ctx.back, ctx.want), None,
+                None, None)
+
+    @staticmethod
+    def vmap(info, in_dims, x, mesh, want, back):
+        bdim = in_dims[0]
+        if bdim is None:
+            return _Redistribute.apply(x, mesh, want, back), None
+        from torch.distributed.tensor import Shard
+
+        def past(ps):
+            return [Shard(p.dim + (p.dim >= bdim)) if p.is_shard() else p
+                    for p in ps]
+        return _Redistribute.apply(x, mesh, past(want), past(back)), bdim

@@ -17,8 +17,9 @@ refuses inputs that require grad while autograd records
 
 Each call is one kernel region for the analysis layer's recorder
 (:func:`repro_torch.marks.kernel`), on either device, carrying
-:func:`flash_attention_work`: the function's 4*D products per visible
-(query, key) pair per query head, and q, k, v read and o written.
+:func:`flash_attention_work`: what the kernel runs, priced by its design
+(bfloat16: 4*D products per visible (query, key) pair per query head;
+float32: the split pre-pass, then 24*D bf16-class products).
 
 Both dtypes run on the tensor cores (``wgmma`` fed by TMA).  bfloat16 reads
 q, k and v as they are.  float32 computes float32-accurate products
@@ -50,6 +51,12 @@ _INT32 = 2**31 - 1
 
 # launches of the CUDA kernel since the last reset_launch_counts()
 launch_counts: Dict[str, int] = {"flash_attention": 0}
+# the float32 design: tensor-core operations per visible pair per query
+# head over D (six bf16 plane products each for Q.K^T and P.V), and the
+# pre-pass's bytes per element of q, k and v (read 4, write three bf16
+# planes, 6)
+F32_SPLIT_OPS_PER_D = 24
+F32_SPLIT_BYTES = 10
 
 
 def reset_launch_counts() -> None:
@@ -69,16 +76,24 @@ def visible_pairs(sq: int, sk: int, causal: bool, window) -> int:
 def flash_attention_work(b: int, sq: int, sk: int, hq: int, hk: int,
                          d: int, dtype: torch.dtype, causal: bool = True,
                          window: Optional[int] = None) -> marks.Work:
-    """The function's work: Q.K^T and P.V, 2*D each per visible pair per
-    query head, float32 products for float32 inputs and 16-bit ones for
-    bfloat16 (the kernel keeps float32 sums); q, k and v read once, o
-    written once, in their dtype."""
+    """What the kernel runs.  bfloat16: Q.K^T and P.V, 2*D products each
+    per visible pair per query head (the kernel keeps float32 sums); q, k
+    and v read once, o written once.  float32, in turn: the split
+    pre-pass (q, k and v read in float32, written as three bf16 planes:
+    ``F32_SPLIT_BYTES`` an element), then ``F32_SPLIT_OPS_PER_D``*D
+    bf16-class products per visible pair per query head (six plane
+    products each for Q.K^T and P.V) with the planes read and o written
+    in float32."""
     pairs = visible_pairs(sq, sk, causal, window)
-    e = dtype.itemsize
-    cls = "bf16" if e == 2 else "f32"
-    return marks.Work({cls: 4 * b * hq * d * pairs},
-                      e * (b * sq * hq * d + 2 * b * sk * hk * d),
-                      e * b * sq * hq * d)
+    n_q, n_kv = b * sq * hq * d, 2 * b * sk * hk * d
+    if dtype.itemsize == 2:
+        return marks.Work({"bf16": 4 * b * hq * d * pairs},
+                          2 * (n_q + n_kv), 2 * n_q)
+    n = n_q + n_kv
+    split = marks.Work({}, 4 * n, (F32_SPLIT_BYTES - 4) * n)
+    launch = marks.Work({"bf16": F32_SPLIT_OPS_PER_D * b * hq * d * pairs},
+                        (F32_SPLIT_BYTES - 4) * n, 4 * n_q)
+    return marks.Work.in_turn(split, launch)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,

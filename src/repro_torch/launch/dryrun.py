@@ -61,6 +61,7 @@ from repro_torch.launch.partitioning import (batch_shardings,
                                              cache_shardings, mesh_axes,
                                              param_spec, params_shardings,
                                              placements)
+from repro_torch.models.layers import token_first
 from repro_torch.models.model import (build_model, decode_state_specs,
                                       input_specs, param_specs,
                                       train_batch_specs)
@@ -325,8 +326,18 @@ def train_programs(cfg: ModelConfig, shape: InputShape, mesh,
     if spec.num_levels >= 3:
         kind_map["mid_sync"] = SyncEvent(level=2)
     resident = local_bytes((state.params, state.opt_state, batch))
-    out = {k: Program(_replicating(_pinned(eng.step_fn(kind_map[k]))),
-                      (state, batch), resident)
+
+    def program(step):
+        fn = _replicating(_pinned(step))
+        if seq_axis is None:
+            return fn
+
+        def by_sequence(*args):
+            with token_first():
+                return fn(*args)
+        return by_sequence
+    out = {k: Program(program(eng.step_fn(kind_map[k])), (state, batch),
+                      resident)
            for k in kinds if k in kind_map}
     return out, plan
 
@@ -455,8 +466,9 @@ def record_train(cfg: ModelConfig, shape: InputShape, mesh,
                  kinds=("local", "local_sync", "global_sync"),
                  **knobs) -> Dict[str, Any]:
     """Each step kind's report of rank 0's training program (see
-    :func:`train_programs` for ``knobs``), and the plan under
-    ``"_plan"``."""
+    :func:`train_programs` for ``knobs``), the plan under ``"_plan"``,
+    rank 0's resident bytes under ``"_resident"`` and those of its params
+    alone under ``"_params"``."""
     programs, plan = train_programs(cfg, shape, mesh, kinds, **knobs)
     mf = model_flops_per_chip(cfg, shape, mesh)
     # one warm-up serves every step kind: they share the local update
@@ -464,7 +476,9 @@ def record_train(cfg: ModelConfig, shape: InputShape, mesh,
                                     mf, warm=i == 0)
                            for i, (k, p) in enumerate(programs.items())}
     out["_plan"] = plan
-    out["_resident"] = next(iter(programs.values())).resident_bytes
+    first = next(iter(programs.values()))
+    out["_resident"] = first.resident_bytes
+    out["_params"] = local_bytes(first.args[0].params)
     return out
 
 
@@ -496,6 +510,7 @@ def make_record(arch: str, shape: InputShape, multi_pod: bool,
     recorded = dict(recorded)
     plan = recorded.pop("_plan", None)
     resident = recorded.pop("_resident")
+    recorded.pop("_params", None)
     reports: Dict[str, RooflineReport] = recorded
     cfg = get_config(arch)
     rec = {

@@ -51,14 +51,27 @@ FLOP_CLASSES = ("bf16", "f32", "other")
 class Work:
     """What one kernel call must do, from its shapes alone: FLOPs by class
     (:data:`FLOP_CLASSES`) and the bytes it must read and write, each
-    input read once and each output written once."""
+    input read once and each output written once.  A call that runs in
+    stages, one after the other (a pre-pass, then the main launch), is
+    :meth:`in_turn` of its stages: its FLOPs and bytes are their sums,
+    and its bound is the sum of theirs."""
     flops: Dict[str, float]
     bytes_read: int
     bytes_written: int
+    stages: Tuple["Work", ...] = ()
 
     @property
     def bytes(self) -> int:
         return self.bytes_read + self.bytes_written
+
+    @classmethod
+    def in_turn(cls, *stages: "Work") -> "Work":
+        flops: Dict[str, float] = {}
+        for w in stages:
+            for c, f in w.flops.items():
+                flops[c] = flops.get(c, 0) + f
+        return cls(flops, sum(w.bytes_read for w in stages),
+                   sum(w.bytes_written for w in stages), tuple(stages))
 
 
 class _Region:

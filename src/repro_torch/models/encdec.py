@@ -28,6 +28,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models.remat import checkpoint
 from repro_torch.models.transformer import (_stack, _stack_draws, _tree_map,
                                             _unit, block_apply,
                                             block_cache_init, block_decode,
@@ -93,17 +94,25 @@ class EncDecLM:
     def forward(self, params: Params, tokens: torch.Tensor,
                 enc_inputs: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """tokens (B,S), enc_inputs (B,F,D) -> (logits (B,S,V), 0)."""
+        """tokens (B,S), enc_inputs (B,F,D) -> (logits (B,S,V), 0).
+        Under ``cfg.remat`` each decoder layer's body (its cross k/v
+        included) is rematerialized, as the reference's
+        ``jax.checkpoint(body)``."""
         cfg = self.cfg
         memory = self.encode(params, enc_inputs)
         b, s = tokens.shape
         x = self._embed(params, tokens)
         positions = positions_of(b, s, x.device)
+
+        def body(p, x, memory, positions):
+            kv = L.attention_kv(p["xattn"], memory, cfg, use_rope=False)
+            return block_apply(p, x, "global", cfg, positions=positions,
+                               enc_kv=kv)[0]
+
         for i in range(cfg.num_layers):
             p = _unit(params["dec_units"], i)
-            kv = L.attention_kv(p["xattn"], memory, cfg, use_rope=False)
-            x, _ = block_apply(p, x, "global", cfg, positions=positions,
-                               enc_kv=kv)
+            x = checkpoint(body, p, x, memory, positions) if cfg.remat \
+                else body(p, x, memory, positions)
         return self._logits(params, x), torch.zeros(
             (), dtype=torch.float32, device=x.device)
 

@@ -25,6 +25,7 @@ the reference's float32 casts, one for one.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 from typing import Any, Dict, Optional, Tuple
@@ -33,10 +34,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.device import dtensor_of, is_dtensor
+from repro_torch.device import (DTENSOR_FLATTENS_SHARDED, dtensor_of,
+                                is_dtensor)
 from repro_torch.kernels import attention as kattn
 from repro_torch.kernels import rglru_scan as krg
 from repro_torch.kernels import ssd_scan as kssd
+from repro_torch.models.remat import checkpoint
 
 Params = Dict[str, Any]
 
@@ -184,13 +187,16 @@ def _attn_core_dense(q, k, v, mask, softcap: Optional[float]) -> torch.Tensor:
 
 
 def _attn_core_chunked(q, k, v, mask, softcap, chunk: int) -> torch.Tensor:
-    """The reference's ``lax.scan`` over query blocks, as a loop."""
+    """The reference's ``lax.scan`` over query blocks, as a loop, each
+    block's body rematerialized as the reference's ``@jax.checkpoint``
+    on it: the backward runs a block again, so no block's (chunk x Sk)
+    probabilities are kept for it."""
     sq = q.shape[-3]
     outs = []
     for i in range(0, sq, chunk):
         mi = None if mask is None else mask[i:i + chunk]
-        outs.append(_attn_core_dense(q[..., i:i + chunk, :, :], k, v, mi,
-                                     softcap))
+        outs.append(checkpoint(_attn_core_dense, q[..., i:i + chunk, :, :],
+                               k, v, mi, softcap))
     return torch.cat(outs, dim=-3)
 
 
@@ -238,9 +244,38 @@ def causal_mask(sq: int, sk: int, window: Optional[int] = None,
     return m
 
 
+def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w``, ``w`` cast to ``x``'s dtype; inside :func:`token_first`,
+    a DTensor ``x`` of 3 or more dims multiplied with its token dim
+    first."""
+    w = w.to(x.dtype)
+    if _token_first and x.ndim >= 3 and dtensor_of(x) is not None:
+        return (x.transpose(0, -2) @ w).transpose(0, -2)
+    return x @ w
+
+
+_token_first = False
+
+
+@contextlib.contextmanager
+def token_first():
+    """For a program whose batch is sharded by sequence, on a torch whose
+    DTensor cannot flatten a sharded inner dim: :func:`dense` puts the
+    token dim first, so that neither its product nor the product's
+    backward flattens (batch, token) with the token dim sharded (the
+    gradient of a product's output comes back sharded like the residual
+    stream, whatever its input was)."""
+    global _token_first
+    was, _token_first = _token_first, not DTENSOR_FLATTENS_SHARDED
+    try:
+        yield
+    finally:
+        _token_first = was
+
+
 def _project(x: torch.Tensor, w: torch.Tensor,
              b: Optional[torch.Tensor]) -> torch.Tensor:
-    y = x @ w.to(x.dtype)
+    y = dense(x, w)
     return y if b is None else y + _bias_beside(y, b.to(x.dtype))
 
 
@@ -299,7 +334,7 @@ def attention_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
             _gqa_core, n_rep=nh // nkv, softcap=cfg.attn_logit_softcap,
             chunk_q=cfg.attn_chunk_q), q, k, v, mask)
     out = _merge_heads(out)
-    return out @ p["wo"].to(x.dtype)
+    return dense(out, p["wo"])
 
 
 def _merge_heads(out: torch.Tensor) -> torch.Tensor:
@@ -377,14 +412,14 @@ def mlp_init(gen: torch.Generator, cfg: ModelConfig,
 
 def mlp_apply(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if cfg.mlp_variant == "swiglu":
-        h = F.silu(x @ p["wg"].to(x.dtype)) * (x @ p["wi"].to(x.dtype))
+        h = F.silu(dense(x, p["wg"])) * dense(x, p["wi"])
     elif cfg.mlp_variant == "geglu":
-        h = _gelu(x @ p["wg"].to(x.dtype)) * (x @ p["wi"].to(x.dtype))
+        h = _gelu(dense(x, p["wg"])) * dense(x, p["wi"])
     elif cfg.mlp_variant == "relu2":
-        h = torch.square(torch.relu(x @ p["wi"].to(x.dtype)))
+        h = torch.square(torch.relu(dense(x, p["wi"])))
     else:  # gelu
-        h = _gelu(x @ p["wi"].to(x.dtype))
-    return h @ p["wo"].to(x.dtype)
+        h = _gelu(dense(x, p["wi"]))
+    return dense(h, p["wo"])
 
 
 def _einsum(eq: str, *ops: torch.Tensor) -> torch.Tensor:
@@ -457,8 +492,8 @@ def moe_apply(p: Params, x: torch.Tensor,
     t = b * s
     group = cfg.moe_group
     if t > group and t % group == 0:
-        ys, auxes = zip(*(_moe_group(p, xg, cfg)
-                          for xg in x.reshape(t // group, group, d)))
+        ys, auxes = zip(*(_moe_group(p, xg[0], cfg) for xg in torch.split(
+            x.reshape(t // group, group, d), 1)))
         return torch.stack(ys).reshape(b, s, d), torch.stack(auxes).mean()
     y, aux = _moe_group(p, x.reshape(t, d), cfg)
     return y.reshape(b, s, d), aux

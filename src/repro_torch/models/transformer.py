@@ -42,8 +42,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.device import DeviceLike, is_dtensor, resolve_device
+from repro_torch.device import (DeviceLike, dtensor_layout, redistribute,
+                                resolve_device)
 from repro_torch.models import layers as L
+from repro_torch.models.remat import checkpoint
 
 Params = Dict[str, Any]
 
@@ -54,16 +56,31 @@ def constrain_acts(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Optional residual-stream sharding constraint (cfg.act_pspec), a §Perf
     knob: pins the layout the residual keeps between layers.  A DTensor
     residual is redistributed to ``act_pspec``'s placements on its own
-    mesh, where the reference asks GSPMD for a sharding constraint; a
-    plain tensor, or ``act_pspec`` None, comes back unchanged (the
-    reference's no-mesh case)."""
-    if cfg.act_pspec is None or not is_dtensor(x):
+    mesh, where the reference asks GSPMD for a sharding constraint, and
+    its gradient goes back to the residual's placements, inside the
+    training step's ``vmap``/``grad`` too (:func:`repro_torch.device.
+    redistribute`).  An axis ``act_pspec`` names that the residual's mesh
+    lacks is left out: in the training step that is a worker axis, which
+    the process's row already is.  A plain tensor, or ``act_pspec`` None,
+    comes back unchanged (the reference's no-mesh case)."""
+    if cfg.act_pspec is None:
         return x
+    layout = dtensor_layout(x)
+    if layout is None:
+        return x
+    d = layout[0]
     from repro_torch.launch.partitioning import placements
-    want = placements(tuple(cfg.act_pspec), x.device_mesh)
-    if want == list(x.placements):
-        return x
-    return x.redistribute(x.device_mesh, want)
+    names = set(d.device_mesh.mesh_dim_names)
+    spec = tuple(_axes_in(e, names) for e in cfg.act_pspec)
+    return redistribute(x, placements(spec, d.device_mesh))
+
+
+def _axes_in(entry, names):
+    """A spec entry with only the mesh axes in ``names`` (None if none)."""
+    if isinstance(entry, tuple):
+        kept = tuple(a for a in entry if a in names)
+        return kept if len(kept) > 1 else (kept[0] if kept else None)
+    return entry if entry in names else None
 
 
 def _tree_map(fn, tree):
@@ -360,7 +377,7 @@ class DecoderLM:
     def _logits(self, params, x):
         x = L.apply_norm(params["final_norm"], x, self.cfg)
         head = params["embed"].T if self.cfg.tie_embeddings else params["lm_head"]
-        return x @ head.to(x.dtype)
+        return L.dense(x, head)
 
     def _blocks(self, params):
         """(block params, kind, unit index or None, pattern index) in depth
@@ -381,18 +398,34 @@ class DecoderLM:
             return x
         return constrain_acts(x, self.cfg)
 
+    def _unit_body(self, unit, x, aux, positions):
+        """One pattern unit, the reference's ``unit_body``: the residual
+        constrained on its way in and out, the unit's blocks in order."""
+        x = constrain_acts(x, self.cfg)
+        for p, kind in zip(unit, self.cfg.block_pattern):
+            x, a = block_apply(p, x, kind, self.cfg, positions=positions)
+            aux = aux + a
+        return constrain_acts(x, self.cfg), aux
+
     # ---- training --------------------------------------------------------
     def forward(self, params: Params,
                 tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """tokens (B,S) -> (logits (B,S,V), moe_aux scalar)."""
+        """tokens (B,S) -> (logits (B,S,V), moe_aux scalar).  Under
+        ``cfg.remat`` each pattern unit is rematerialized (its backward
+        runs it again), as the reference's ``jax.checkpoint(unit_body)``."""
+        cfg = self.cfg
         b, s = tokens.shape
         x = self._embed(params, tokens)
         positions = positions_of(b, s, x.device)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for p, kind, u, j in self._blocks(params):
-            x = self._unit_edge(x, u, j, 0)
-            x, a = block_apply(p, x, kind, self.cfg, positions=positions)
-            x = self._unit_edge(x, u, j, -1)
+        for u in range(cfg.num_pattern_units):
+            unit = tuple(_unit(t, u) for t in params["units"])
+            if cfg.remat:
+                x, aux = checkpoint(self._unit_body, unit, x, aux, positions)
+            else:
+                x, aux = self._unit_body(unit, x, aux, positions)
+        for p, kind in zip(params["rem"], cfg.pattern_remainder):
+            x, a = block_apply(p, x, kind, cfg, positions=positions)
             aux = aux + a
         return self._logits(params, x), aux
 

@@ -68,7 +68,12 @@ def work_bound(work: Work, hw: HW = HW(),
                tf32: bool = False) -> Tuple[float, str]:
     """Least seconds of one kernel call's ``work``: the larger of its bytes
     over the memory rate and its FLOPs over their classes' rates, and
-    which of the two bounds it ("bytes" or "operations")."""
+    which of the two bounds it ("bytes" or "operations").  A call of
+    stages (``work.stages``) takes the sum of their bounds, and is bound
+    by what bounds its longest stage."""
+    if work.stages:
+        parts = [work_bound(w, hw, tf32) for w in work.stages]
+        return sum(t for t, _ in parts), max(parts)[1]
     t_bytes = work.bytes / hw.hbm_bw
     t_ops = sum(f / hw.rate(c, tf32) for c, f in work.flops.items())
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops

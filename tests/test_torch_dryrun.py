@@ -356,45 +356,76 @@ def _small_world():
     return cfg, model, params, batch
 
 
-def _placed_rank(rank):
+# the pins of the placed step: none, and the residual pinned at every unit
+# edge to its sequence dim over 'model' (it arrives sharded on d_model)
+PINS = (None, (None, "model", None))
+
+
+def _placed_rank(rank, pins):
     """One rank of (pod=2, data=2, model=2): its worker's row placed on the
-    'model' dim, one global-sync step, its worker's full params back."""
+    'model' dim, one global-sync step from the same state for each
+    ``act_pspec`` of ``pins``, its worker's full params back for each."""
     from torch.distributed.device_mesh import init_device_mesh
     from torch.distributed.tensor import Replicate
     from repro_torch.launch.mesh import make_hsgd_mesh, name_mesh_groups
     torch.set_num_threads(1)
-    cfg, model, params, batch = _small_world()
+    cfg, _, params, batch = _small_world()
     mesh = name_mesh_groups(init_device_mesh(
         "cpu", (2, 2, 2), mesh_dim_names=("pod", "data", "model")))
     hmesh = make_hsgd_mesh(SMALL_SPEC.group_sizes, device_mesh=mesh)
-    eng = HSGD(model.loss, sgd(1e-2), make_topology("uniform",
-                                                    spec=SMALL_SPEC),
-               EngineConfig(executor=MeshExecutor(hmesh)))
-    state = eng.init_from_params(params, device="cpu")
     wmesh = mesh["model"]
 
     def spec(t):
         return D._row(PP.param_spec(tuple(t.shape), 2,
                                     lead_worker=("pod", "data")))
-    state = dataclasses.replace(
-        state, params=D._place_tree(state.params, spec, wmesh),
-        opt_state=D._place_tree(state.opt_state, spec, wmesh))
-    rows = {k: D.place(v[eng.executor.widx][None], (None,) * 3, wmesh)
-            for k, v in batch.items()}
-    step = D._replicating(eng.step_fn(SyncEvent(level=1)))
-    new, metrics = step(state, rows)
-    full = [t.redistribute(wmesh, [Replicate()]).to_local()[0].numpy()
-            for t in tree_flatten(new.params)[0]]
-    return {"params": full, "ce": float(metrics["ce"].full_tensor())}
+    out = {}
+    for pin in pins:
+        model = build_model(dataclasses.replace(cfg, act_pspec=pin))
+        eng = HSGD(model.loss, sgd(1e-2), make_topology("uniform",
+                                                        spec=SMALL_SPEC),
+                   EngineConfig(executor=MeshExecutor(hmesh)))
+        state = eng.init_from_params(params, device="cpu")
+        state = dataclasses.replace(
+            state, params=D._place_tree(state.params, spec, wmesh),
+            opt_state=D._place_tree(state.opt_state, spec, wmesh))
+        rows = {k: D.place(v[eng.executor.widx][None], (None,) * 3, wmesh)
+                for k, v in batch.items()}
+        step = D._replicating(eng.step_fn(SyncEvent(level=1)))
+        new, metrics = step(state, rows)
+        out[pin] = {"params": [t.redistribute(wmesh, [Replicate()])
+                               .to_local()[0].numpy()
+                               for t in tree_flatten(new.params)[0]],
+                    "ce": float(metrics["ce"].full_tensor())}
+    return out
 
 
-def test_placed_global_sync_runs_as_the_sim_step():
+@pytest.fixture(scope="module")
+def placed():
+    """Rank 0's results of the placed step under each of PINS, from one
+    launch of 8 ``gloo`` ranks."""
+    return launch(_placed_rank, 8, backend="gloo", device="cpu",
+                  args=(PINS,), timeout=240.0)
+
+
+def test_placed_global_sync_runs_as_the_sim_step(placed):
     """The reference test's second leg: the placed global-sync step on 8
     ``gloo`` ranks (tensor parallelism over 'model' inside each worker,
     the sync over ('pod', 'data')) gives rank 0's worker the params and
     the mean CE of the single-process sim step, within 1e-5."""
-    got = launch(_placed_rank, 8, backend="gloo", device="cpu",
-                 timeout=240.0)
+    _against_the_sim(placed[None])
+
+
+def test_placed_global_sync_with_act_pspec_runs_as_the_sim_step(placed):
+    """The same with the residual pinned at every unit edge to its
+    sequence dim over 'model' (it arrives there sharded on d_model), so
+    that the pin's redistribution runs inside the step's ``vmap(grad)``
+    and its backward moves the gradient back, on real ranks: still
+    within 1e-5 of the sim step (where the pin, on plain tensors, does
+    nothing)."""
+    _against_the_sim(placed[PINS[1]])
+
+
+def _against_the_sim(got):
     cfg, model, params, batch = _small_world()
     eng = HSGD(model.loss, sgd(1e-2), make_topology("uniform",
                                                     spec=SMALL_SPEC))

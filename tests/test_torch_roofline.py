@@ -11,7 +11,8 @@
 * Reduced qwen2-0.5b ``loss`` (``tests/test_dryrun_small.py``'s shape,
   kernels off on both sides): product FLOPs within 1% of the reference's
   trip-aware product count (its layers run in a scan); with the kernels on
-  the attention regions price 4*D per visible pair, exactly.
+  the float32 attention regions price the design's pre-pass and 24*D
+  bf16-class products per visible pair, exactly.
 * Every wrapper opens one region carrying its kernel's work, and the work
   counts reproduce PERF.md's bound column.
 * The twins of ``benchmarks/roofline_table.py`` and ``run.py``.
@@ -258,20 +259,25 @@ def test_reduced_qwen2_loss_products_match_the_reference(jx, monkeypatch):
 
 
 def test_kernel_regions_price_visible_pairs():
-    """Kernels on (on the CPU the plain version runs inside each region):
-    the product FLOPs are the kernels-off count less the masked pairs'
-    Q.K^T and P.V products, exactly."""
+    """Kernels on (on the CPU the plain version runs inside each region),
+    float32: the float32 product FLOPs are the kernels-off count less
+    every attention product (Q.K^T and P.V over all S x S pairs, the
+    masked ones included), exactly, and the regions' bf16-class products
+    are the design's 24*D per visible pair per query head."""
     cfg = _qwen2_reduced()
+    assert cfg.dtype == "float32"
     batch = _tokens(cfg)
     off = _port_loss(cfg, batch)
     on = _port_loss(dataclasses.replace(cfg, use_kernels=True), batch)
     b, s = batch["tokens"].shape
-    masked = s * s - kattn.visible_pairs(s, s, True, None)
-    per_layer = 4 * cfg.d_head * b * cfg.num_heads * masked
+    per_layer = 4 * cfg.d_head * b * cfg.num_heads * s * s
+    visible = kattn.visible_pairs(s, s, True, None)
     assert off.regions == {}
     assert on.regions == {"flash_attention": cfg.num_layers}
     assert off.flops_by_class["f32"] - on.flops_by_class["f32"] == \
         cfg.num_layers * per_layer
+    assert on.flops_by_class["bf16"] - off.flops_by_class.get("bf16", 0) \
+        == cfg.num_layers * 24 * cfg.d_head * b * cfg.num_heads * visible
 
 
 def _randn(*shape, dtype=torch.float32):
