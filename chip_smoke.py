@@ -185,6 +185,19 @@ or of the JAX package.  It
    (seed 0, T=240) on the card against the CPU within LOSS_RTOL, and
    fig3c's four divergences on the same grads within DIV_RTOL of the
    largest; no kernel may launch (this path runs no codec);
+10a. examples phase: the twins of the JAX package's ``examples/``
+   (``repro_torch.examples``) through their ``main``s on the card, one
+   JSON line each with its setting, device, wall seconds and result:
+   quickstart, multilevel_hsgd and population_hsgd on the card and the
+   CPU (losses and accuracy within LOSS_RTOL, clients seen equal, no
+   kernel launched); serve_decode per arch (gemma3-12b, mamba2-130m,
+   recurrentgemma-2b, seamless-m4t-large-v2, reduced, float32) with the
+   kernels and with the plain versions on the card: greedy tokens equal,
+   one ``flash_attention`` launch per causal self-attention layer of the
+   prefill; train_hsgd with the reference's argv but fresh
+   ``--ckpt-dir`` and ``--out`` (EXAMPLES_DIR): ``int8_scale_quantize``
+   once per wire sync and int8 bucket, the checkpoints of steps 60 and
+   120, ``sim_time_s`` in every step record;
 11. runtime phase: the simulated runtime, elastic drop rounds and async
    stale slots on the sim.  The twin of ``benchmarks/bench_runtime.py``
    (``repro_torch.experiments.bench_runtime.matrix``: two topologies x
@@ -316,8 +329,8 @@ or of the JAX package.  It
    ``chiprun_out/chip_smoke.json``, then prints one ``{"ssm": ...}`` JSON
    line with the SSM throughputs, one ``{"moe_encdec": ...}`` line, one
    ``{"topk_sim": ..., "mesh": ...}`` line, one ``{"experiments": ...}``
-   line, one ``{"runtime": ...}`` line, one ``{"obs": ...}`` line, one
-   ``{"population": ...}`` line, one ``{"train": ...}`` line, one
+   line, one ``{"examples": ...}`` line, one ``{"runtime": ...}`` line,
+   one ``{"obs": ...}`` line, one ``{"population": ...}`` line, one ``{"train": ...}`` line, one
    ``{"analysis": ...}`` line, one ``{"roofline": ...}`` line, one
    ``{"dryrun": ...}`` line, one ``{"hillclimb": ...}`` line, one
    ``{"kernels": [...]}`` JSON line (all
@@ -331,7 +344,7 @@ Any failed phase exits non-zero before the result line.
 builds every kernel and runs only the named phases (comma-separated, in
 the order above: kernels, main_path, topk_kernel, topk_sim, mesh,
 attention, serving, ssm_kernel, ssm_forward, ssm_serving, moe_encdec,
-experiments, runtime, obs, population, train, analysis, roofline,
+experiments, examples, runtime, obs, population, train, analysis, roofline,
 dryrun, hillclimb), writes their
 records to ``chiprun_out/chip_smoke_phases.json``, prints one JSON line
 per phase and the result line last.  The ``kernels`` line needs every
@@ -531,6 +544,13 @@ EXPERIMENTS_BUDGET_S = 180.0
 DIV_RTOL = 1e-5
 SPS_SPEC = (8, 2, 16, 4)         # two_level(8, 2, 16, 4)
 SPS_T, SPS_REPS = 256, 3
+# the examples phase: the twins of the JAX package's examples/ through
+# their main()s on the card; quickstart, multilevel and population card
+# against CPU within LOSS_RTOL relative (population's clients seen
+# equal), serve_decode's greedy tokens with the kernels equal to the
+# plain versions' on the card, train_hsgd's run into fresh paths under
+# EXAMPLES_DIR (removed after)
+EXAMPLES_DIR = ROOT / "build" / "examples_phase"
 # runtime phase: the host cost of the new paths is the median of this
 # many runs of each arm; the false claim the twin must reproduce
 RUNTIME_REPS = 3
@@ -2921,6 +2941,168 @@ def experiments_phase(torch, counted):
     return rec
 
 
+def examples_phase(torch, kern, kattn, ref):
+    """The twins of the JAX package's ``examples/``
+    (``repro_torch.examples``) on the card through their ``main``s, one
+    JSON line each with its setting, device, wall seconds and result.
+    quickstart, multilevel_hsgd and population_hsgd also on the CPU: the
+    final loss and accuracy, each run's final loss and each round's train
+    loss within LOSS_RTOL relative, population's clients seen equal; no
+    kernel may launch (no codec on their path).  serve_decode per arch
+    with the kernels, then with the plain versions on the card: greedy
+    tokens equal, and one ``flash_attention`` launch per causal
+    self-attention layer in the prefill (none in decode, the SSM scans
+    not in a prefill).  train_hsgd into fresh ``--ckpt-dir`` and
+    ``--out`` under EXAMPLES_DIR: ``int8_scale_quantize`` launched once
+    per wire sync and int8 bucket, the checkpoints of steps 60 and 120
+    written, every step record carrying ``sim_time_s``.  Returns the
+    phase's record with the launches by run."""
+    import io
+    import shutil
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core import two_level
+    from repro_torch.examples import (multilevel_hsgd, population_hsgd,
+                                      quickstart, serve_decode, train_hsgd)
+    t_phase = time.perf_counter()
+    rec = {"twins": [], "launches": {"flash_attention": {},
+                                     "int8_scale_quantize": {}}}
+
+    def reset():
+        kern.reset_launch_counts()
+        kattn.reset_launch_counts()
+
+    def launched():
+        return {k: n for mod in (kern, kattn)
+                for k, n in mod.launch_counts.items() if n}
+
+    def run(name, setting, device, fn, quiet=False):
+        t0 = time.perf_counter()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out) if quiet \
+                else contextlib.nullcontext():
+            result = fn()
+        torch.cuda.synchronize()
+        line = {"example": name, "setting": setting, "device": device,
+                "wall_s": time.perf_counter() - t0, "result": result}
+        print(json.dumps(line), flush=True)
+        rec["twins"].append(line)
+        return result, out.getvalue()
+
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+
+    # the MLP twins, card against CPU
+    for name, mod, keys in (("quickstart", quickstart, ("loss", "acc")),
+                            ("multilevel_hsgd", multilevel_hsgd,
+                             ("loss",)),
+                            ("population_hsgd", population_hsgd, ("ce",))):
+        reset()
+        card, _ = run(name, "the example's", "cuda",
+                      lambda: mod.main("cuda"))
+        check(not launched(), f"{name} launched kernels: {launched()}")
+        cpu, _ = run(name, "the example's", "cpu", lambda: mod.main("cpu"),
+                     quiet=True)
+        check(len(card) == len(cpu), f"{name}: {len(card)} records on the "
+              f"card, {len(cpu)} on the CPU")
+        worst = max(rel(c[k], h[k]) for c, h in zip(card, cpu) for k in keys)
+        final = max(rel(card[-1][k], cpu[-1][k]) for k in keys)
+        print(f"{name}: card vs CPU, largest relative difference {worst!r} "
+              f"(final record {final!r})", flush=True)
+        rec[name] = {"rel_max": worst, "rel_final": final}
+        check(all(math.isfinite(c[k]) for c in card for k in keys)
+              and (final if name == "quickstart" else worst) <= LOSS_RTOL,
+              f"{name}: card vs CPU differ by {worst} relative (final "
+              f"{final}) > {LOSS_RTOL}")
+        if name == "population_hsgd":
+            check([(c["t"], c["unique"]) for c in card]
+                  == [(h["t"], h["unique"]) for h in cpu],
+                  "population_hsgd: other steps or clients seen on the card "
+                  "than on the CPU")
+
+    # serve_decode per arch: the kernels against the plain versions
+    rec["serve_decode"] = {}
+    for arch in serve_decode.ARCHS:
+        cfg = reduced(get_config(arch))
+        reset()
+        ours, _ = run("serve_decode", f"{arch}, kernels", "cuda",
+                      lambda: serve_decode.main("cuda", archs=(arch,)))
+        counts = dict(kattn.launch_counts)
+        with plain_versions(kern, ref, kattn):
+            plain, _ = run("serve_decode", f"{arch}, plain versions",
+                           "cuda", lambda: serve_decode.main(
+                               "cuda", archs=(arch,)))
+        check(dict(kattn.launch_counts) == counts,
+              f"serve_decode {arch}: the plain versions' run launched a "
+              "kernel")
+        want = _layer_launches(cfg)["flash_attention"]
+        check(counts["flash_attention"] == want,
+              f"serve_decode {arch}: {counts['flash_attention']} "
+              f"flash_attention launches, predicted {want}")
+        if want:
+            rec["launches"]["flash_attention"][
+                f"examples serve_decode {arch} float32"] = want
+        check(ours[arch] == plain[arch],
+              f"serve_decode {arch}: greedy tokens with the kernels "
+              f"{ours[arch]} differ from the plain versions' {plain[arch]}")
+        rec["serve_decode"][arch] = {
+            "tokens": ours[arch], "flash_attention": counts["flash_attention"]}
+        print(f"serve_decode {arch}: greedy tokens equal to the plain "
+              f"versions' on the card, {counts['flash_attention']} "
+              f"flash_attention launches", flush=True)
+
+    # train_hsgd into fresh paths
+    shutil.rmtree(EXAMPLES_DIR, ignore_errors=True)
+    ckpt, out = EXAMPLES_DIR / "ckpt", EXAMPLES_DIR / "history.json"
+    try:
+        reset()
+        history, printed = run(
+            "train_hsgd", f"the example's argv, --ckpt-dir {ckpt} --out "
+            f"{out}", "cuda", lambda: train_hsgd.main(
+                "cuda", {"--ckpt-dir": str(ckpt), "--out": str(out)}),
+            quiet=True)
+        counts = dict(kern.launch_counts)
+        lines = [json.loads(x) for x in printed.splitlines()
+                 if x.startswith("{")]
+        wire = next(x["wire"] for x in lines if "wire" in x)
+        buckets = sum(p["dtype"] == "int8" for p in wire["payload"])
+        argv = train_hsgd.argv()
+        flag = lambda name: int(argv[argv.index(name) + 1])  # noqa: E731
+        syncs = _train_syncs(two_level(flag("--workers"), flag("--groups"),
+                                       flag("--G"), flag("--I")),
+                             0, flag("--steps"))
+        check(counts["int8_scale_quantize"] == syncs * buckets,
+              f"train_hsgd: {counts['int8_scale_quantize']} "
+              f"int8_scale_quantize launches, predicted {syncs} syncs x "
+              f"{buckets} int8 buckets")
+        rec["launches"]["int8_scale_quantize"][
+            "examples train_hsgd"] = counts["int8_scale_quantize"]
+        files = sorted(p.name for p in ckpt.iterdir())
+        check(files == ["ckpt_00000060.msgpack", "ckpt_00000120.msgpack"],
+              f"train_hsgd: checkpoints {files}")
+        steps_rec = [x for x in lines if "step" in x]
+        check(len(steps_rec) == len(history) and steps_rec
+              and all(math.isfinite(x["sim_time_s"])
+                      and math.isfinite(x["loss"]) for x in steps_rec),
+              "train_hsgd: a step record without sim_time_s or with a "
+              "loss not finite")
+        check(json.loads(out.read_text()) == json.loads(
+            json.dumps(history)), "train_hsgd: --out differs from the "
+            "returned history")
+        rec["train_hsgd"] = {
+            "syncs": syncs, "int8_buckets": buckets,
+            "int8_scale_quantize": counts["int8_scale_quantize"],
+            "checkpoints": files, "records": len(steps_rec),
+            "final": steps_rec[-1]}
+        print(f"train_hsgd: {len(steps_rec)} records, "
+              f"{counts['int8_scale_quantize']} int8_scale_quantize launches"
+              f" = {syncs} syncs x {buckets} buckets, checkpoints {files}, "
+              f"final {steps_rec[-1]}", flush=True)
+    finally:
+        shutil.rmtree(EXAMPLES_DIR, ignore_errors=True)
+    rec["wall_s"] = time.perf_counter() - t_phase
+    return rec
+
+
 # The runtime phase's codec runs in the quickstart world: (label, comms,
 # EngineConfig fields, the kernels the run must launch).  A runtime is
 # built per run (a factory), its clock per run_rounds call.
@@ -4901,8 +5083,9 @@ def profile_phase(torch, kattn):
 # the phases, in the order a run with no --phase takes them
 PHASES = ("kernels", "main_path", "topk_kernel", "topk_sim", "mesh",
           "attention", "serving", "ssm_kernel", "ssm_forward", "ssm_serving",
-          "moe_encdec", "experiments", "runtime", "obs", "population",
-          "train", "analysis", "roofline", "dryrun", "hillclimb")
+          "moe_encdec", "experiments", "examples", "runtime", "obs",
+          "population", "train", "analysis", "roofline", "dryrun",
+          "hillclimb")
 
 
 def parse_args(argv):
@@ -5009,6 +5192,7 @@ def main() -> int:
         "moe_encdec": lambda: moe_encdec_phase(torch, kern, kattn, ref),
         "experiments": lambda: experiments_phase(torch,
                                                  (kern, kattn, kssd, krg)),
+        "examples": lambda: examples_phase(torch, kern, kattn, ref),
         "runtime": lambda: runtime_phase(torch, kern, ref),
         "obs": lambda: obs_phase(torch, kern, ref),
         "population": lambda: population_phase(torch, kern, ref),
@@ -5077,6 +5261,7 @@ def main() -> int:
     attn, served, ssm = res["attention"], res["serving"], res["ssm_kernel"]
     ssm_fwd, ssm_served = res["ssm_forward"], res["ssm_serving"]
     moe_encdec, experiments = res["moe_encdec"], res["experiments"]
+    examples = res["examples"]
     runtime, obs, population = res["runtime"], res["obs"], res["population"]
     trained, analysis = res["train"], res["analysis"]
     roofline, dryrun, hillclimb = res["roofline"], res["dryrun"], \
@@ -5084,6 +5269,8 @@ def main() -> int:
     for phase in (mesh, runtime, obs, population, trained, analysis):
         for name, by_run in phase["launches"].items():
             launches[name].update(by_run)
+    launches["int8_scale_quantize"].update(
+        examples["launches"]["int8_scale_quantize"])
     launches["int8_scale_quantize"].update(
         roofline["launches"]["int8_scale_quantize"])
     kernels = []
@@ -5140,6 +5327,7 @@ def main() -> int:
 
     attn_runs = {**served["launches"], **runs_of("flash_attention"),
                  **moe_encdec["launches"],
+                 **examples["launches"]["flash_attention"],
                  **roofline["launches"]["flash_attention"],
                  **dryrun["launches"]["flash_attention"]}
     kernels.append({
@@ -5186,6 +5374,8 @@ def main() -> int:
         {"topk_sim": topk_sim, "mesh": mesh},
         {"experiments": {k: v for k, v in experiments.items()
                          if k != "mains"}},
+        {"examples": {k: v for k, v in examples.items()
+                      if k not in ("twins", "launches")}},
         {"runtime": {k: v for k, v in runtime.items() if k != "launches"}},
         {"obs": {k: v for k, v in obs.items() if k != "launches"}},
         {"population": {k: v for k, v in population.items()

@@ -37,7 +37,8 @@ import torch
 
 from repro_torch.core.topology import SyncEvent, Topology
 from repro_torch.runtime import make_runtime
-from repro_torch.device import DeviceLike, recip_f32, resolve_device
+from repro_torch.device import (DeviceLike, recip_f32, resolve_device,
+                                uneven_split)
 from repro_torch.optim.optimizers import Optimizer
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -233,6 +234,19 @@ def _replicate(tree, n: int):
                     .clone(), tree)
 
 
+def _microbatches(x: torch.Tensor, accum: int) -> torch.Tensor:
+    """``x`` as ``(accum, B // accum, ...)``: the microbatches are the
+    contiguous blocks ``x[i * B // accum:(i + 1) * B // accum]``."""
+    m = x.shape[0] // accum
+    if uneven_split(x, 0, accum):
+        # DTensor's view rule refuses to split a batch sharded unevenly
+        # over the microbatches (nemotron-4-340b's 128 sequences over 16
+        # ranks into 8 of 16); its split rule gathers the batch first, and
+        # the even case's select gathers each microbatch all the same
+        return torch.stack(torch.split(x, m, dim=0))
+    return x.reshape((accum, m) + tuple(x.shape[1:]))
+
+
 class HSGD:
     """The plan layer.  loss_fn(params, batch) -> (loss, metrics-dict).
     Batches carry a leading worker axis of size n; they may be numpy arrays
@@ -363,8 +377,7 @@ class HSGD:
         def mean_grads(params, batch):
             if accum == 1:
                 return grad_fn(params, batch)
-            mbs = tree_map(lambda x: x.reshape(
-                (accum, x.shape[0] // accum) + tuple(x.shape[1:])), batch)
+            mbs = tree_map(lambda x: _microbatches(x, accum), batch)
             gsum = tree_map(lambda p: torch.zeros(
                 p.shape, dtype=torch.float32, device=p.device), params)
             ms = []

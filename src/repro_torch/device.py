@@ -87,6 +87,21 @@ def dtensor_layout(x):
     return x, out
 
 
+def uneven_split(x, dim: int, n: int) -> bool:
+    """Is ``x`` a DTensor, or one under functorch's wrappers, whose dim
+    ``dim`` (in ``x``'s own dims) is sharded over a mesh dim whose size
+    does not divide ``n``?  DTensor's view rule refuses to split such a
+    dim into ``(n, ...)`` ("Cannot unflatten unevenly sharded tensor");
+    its split and stack rules gather the dim instead."""
+    layout = dtensor_layout(x)
+    if layout is None:
+        return False
+    d, placements = layout
+    dim %= x.ndim
+    return any(p.is_shard(dim) and n % d.device_mesh.size(i)
+               for i, p in enumerate(placements))
+
+
 def redistribute(x, placements):
     """``x``, a DTensor or one under functorch's wrappers, moved to
     ``placements`` (in ``x``'s own dims, :func:`dtensor_layout`), its

@@ -35,7 +35,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import (DTENSOR_FLATTENS_SHARDED, dtensor_of,
-                                is_dtensor)
+                                is_dtensor, uneven_split)
 from repro_torch.kernels import attention as kattn
 from repro_torch.kernels import rglru_scan as krg
 from repro_torch.kernels import ssd_scan as kssd
@@ -130,7 +130,7 @@ def attention_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
 
 
 def _split_heads(x: torch.Tensor, n: int, dh: int) -> torch.Tensor:
-    if _uneven_heads(x, n):
+    if uneven_split(x, -1, n):
         # DTensor's view rule refuses to split a shard unevenly (qwen2-0.5b's
         # 14 and 2 heads over 16 ranks); its split rule gathers the dim
         # first, as the reference's GSPMD inserts its own collectives here.
@@ -139,23 +139,43 @@ def _split_heads(x: torch.Tensor, n: int, dh: int) -> torch.Tensor:
     return x.reshape(x.shape[:-1] + (n, dh))
 
 
-def _uneven_heads(x: torch.Tensor, n: int) -> bool:
-    """Is ``x`` a DTensor (or one under functorch's wrappers) whose last dim
-    is sharded over a mesh dim whose size does not divide ``n``?"""
-    d = dtensor_of(x)
-    if d is None:
-        return False
-    last, mesh = d.ndim - 1, d.device_mesh
-    return any(p.is_shard(last) and n % mesh.size(i)
-               for i, p in enumerate(d.placements))
-
-
 def _gqa_repeat(k: torch.Tensor, n_rep: int) -> torch.Tensor:
     """(..., S, Hk, Dh) -> (..., S, Hk*n_rep, Dh), each head n_rep times in
     a row (``jnp.repeat``'s order)."""
     if n_rep == 1:
         return k
+    if dtensor_of(k) is not None:
+        return _RepeatHeads.apply(k, n_rep)
     return torch.repeat_interleave(k, n_rep, dim=-2)
+
+
+class _RepeatHeads(torch.autograd.Function):
+    """``repeat_interleave`` over the heads of a DTensor, whose backward
+    sums each head's ``n_rep`` copies.  Autograd's own backward views the
+    gradient's heads as ``(Hk, n_rep)``, which DTensor refuses when they
+    are sharded over a mesh dim whose size does not divide ``Hk``
+    (mixtral-8x22b's 48 heads over 16 ranks into 8 x 6); there this one
+    takes split form, and DTensor's split rule gathers the heads first.
+    Plain tensors never come here.  Under ``vmap`` the heads stay dim -2
+    wherever the batch dim sits, so the generated rule serves."""
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(k, n_rep):
+        return torch.repeat_interleave(k, n_rep, dim=-2)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.n_rep = inputs[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        n_rep = ctx.n_rep
+        hk = g.shape[-2] // n_rep
+        if uneven_split(g, -2, hk):
+            return torch.stack([c.sum(-2) for c in
+                                torch.split(g, n_rep, dim=-2)], dim=-2), None
+        return g.unflatten(-2, (hk, n_rep)).sum(-2), None
 
 
 _ATTN_CHUNK_Q = 512  # default q-block size for the memory-bounded path

@@ -18,6 +18,11 @@
 * The reference test's second leg: the placed global-sync step run for
   real on 8 ``gloo`` ranks against the single-process sim step.
 * The CLI's round trip, and its refusal of the reference's file name.
+* The two splits that DTensor refuses when uneven (the microbatch split
+  of a batch sharded over 'data', the GQA repeat's backward of heads
+  sharded over a mesh dim), recorded in the workers' ``vmap`` on a small
+  mesh and at the production faults' shapes: each gathers only its
+  operand, bytes counted by hand.
 * ``gpu``: rank 0's reduced prefill on the card prices as on ``meta``.
 
 The ranks of the ``gloo`` leg import this module, so JAX enters only inside
@@ -496,6 +501,216 @@ def test_constrain_acts_redistributes_a_dtensor_residual():
         assert out.to_local().shape == (2, 8, 8)
         assert constrain_acts(out, pinned) is out
     assert not dist.is_initialized()
+
+
+# ---------------------------------------------------------------------------
+# two splits that DTensor's view rule refuses when uneven
+# ---------------------------------------------------------------------------
+# A worker's batch (tokens and targets, int32) of B sequences split into
+# `accum` microbatches over 'data', and the GQA repeat of `hk` kv heads to
+# `hq` query heads whose gradient is sharded as `q_spec` says.  "small":
+# the views [2, 4] and [2, 6] over 4 ranks; "production": the two faults'
+# own views on the (data=16, model=16) worker mesh, on `meta`:
+# nemotron-4-340b's accum8 ([8, 16] over 16) and mixtral-8x22b's 48 heads
+# sharded over 'data' and its batch over 'model' ([8, 6] over 16).
+C1_WORLDS = {
+    "small": dict(mesh=(4, 4), device="cpu", B=8, S=16, accum=2, hq=12,
+                  hk=2, dh=16, dtype=torch.float32,
+                  q_spec=(None, None, None, "model", None)),
+    "production": dict(mesh=(16, 16), device="meta", B=128, S=4096,
+                       accum=8, hq=48, hk=8, dh=128, dtype=torch.bfloat16,
+                       q_spec=(None, "model", None, "data", None)),
+}
+
+
+@pytest.fixture(scope="module", params=list(C1_WORLDS))
+def uneven_splits(request):
+    """Each split's recorded program on a fake world of the mesh's size,
+    inside ``vmap`` as the workers' programs run: one local update with
+    accumulation, and the gradient of the GQA repeat.  The world's
+    parameters and, per program, its report or the error it raised."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.launch.mesh import name_mesh_groups
+    from repro_torch.models import layers as L
+    from repro_torch.roofline import analyze_program
+    from repro_torch.tree import tree_map
+    w = C1_WORLDS[request.param]
+    dev = w["device"]
+
+    def loss(p, b):
+        return (p["w"] * (b["tokens"].float().mean()
+                          + b["targets"].float().mean())).sum(), {}
+
+    out = {"world": w}
+    with D.fake_world(w["mesh"][0] * w["mesh"][1]):
+        mesh = name_mesh_groups(init_device_mesh(
+            "cpu", w["mesh"], mesh_dim_names=("data", "model")))
+        eng = HSGD(loss, sgd(0.1), make_topology("two_level", n=4, N=2,
+                                                 G=4, I=2),
+                   EngineConfig(accum_steps=w["accum"]))
+        params = {"w": D.place(torch.ones(1, 4, device=dev), (None,) * 2,
+                               mesh)}
+        opt = tree_map(lambda t: D.place(t.reshape(1).to(dev), (None,),
+                                         mesh),
+                       eng.optimizer.init({"w": torch.ones(1, 4)}))
+        batch = {k: D.place(torch.ones(1, w["B"], w["S"], device=dev,
+                                       dtype=torch.int32),
+                            (None, "data", None), mesh)
+                 for k in ("tokens", "targets")}
+        heads = (1, w["B"], w["S"])
+        k = D.place(torch.ones(heads + (w["hk"], w["dh"]), device=dev,
+                               dtype=w["dtype"]), (None,) * 5, mesh)
+        q = D.place(torch.ones(heads + (w["hq"], w["dh"]), device=dev,
+                               dtype=w["dtype"]), w["q_spec"], mesh)
+        programs = {
+            "microbatches": (D._replicating(torch.func.vmap(
+                eng.local_update_fn())), params, opt, batch),
+            "gqa_repeat": (torch.func.vmap(torch.func.grad(
+                lambda k, q: (L._gqa_repeat(k, w["hq"] // w["hk"])
+                              * q).sum())), k, q)}
+        for name, (fn, *args) in programs.items():
+            try:
+                out[name] = analyze_program(name, fn, *args)
+            except Exception as e:      # the test that reads it fails
+                out[name] = e
+    return out
+
+
+def _only_gathers(rep, n_bytes):
+    assert not isinstance(rep, Exception), rep
+    assert rep.coll_cross == 0
+    assert rep.coll_intra == rep.coll_by_kind["all-gather"] == n_bytes
+
+
+def test_microbatches_of_an_unevenly_sharded_batch_record(uneven_splits):
+    """The split into microbatches gathers each leaf of the worker's batch
+    once (int32, every sequence); the rest of the step is then local."""
+    w = uneven_splits["world"]
+    _only_gathers(uneven_splits["microbatches"], 2 * w["B"] * w["S"] * 4)
+
+
+def test_gqa_repeat_backward_of_unevenly_sharded_heads_records(
+        uneven_splits):
+    """The backward of the repeat gathers the query heads' gradient once
+    (every head of rank 0's sequences) before summing each kv head's
+    copies."""
+    w = uneven_splits["world"]
+    seqs = w["B"] // (w["mesh"][1] if "model" in w["q_spec"][:3] else 1)
+    _only_gathers(uneven_splits["gqa_repeat"],
+                  seqs * w["S"] * w["hq"] * w["dh"] * w["dtype"].itemsize)
+
+
+# The same two splits with real values on 4 gloo ranks: the batch and
+# the heads each sharded over a mesh dim of 4 that divides neither the
+# microbatch count nor the kv heads, against the plain ops on the same
+# numpy draws.  VALUES_ATOL: the sums of the repeat's backward may run in
+# another order than autograd's (6 terms of size <= 1 in float32).
+C1_VALUES = dict(B=8, S=4, accum=2, hq=12, hk=2, dh=8)
+VALUES_ATOL = 1e-6
+
+
+def _c1_values():
+    """The draws and programs of the value check: (params, opt_state,
+    batch, k, q) as plain tensors with a worker axis of 1, one local update with accumulation whose loss is not
+    linear in a microbatch's mean (so a wrong grouping moves the update),
+    and the gradient of tanh of the repeat times q (so a wrong grouping of
+    the copies moves each kv head's gradient)."""
+    w = C1_VALUES
+    rng = np.random.default_rng(2)
+    params = {"w": torch.from_numpy(rng.normal(size=(1, 4))
+                                    .astype(np.float32))}
+    batch = {k: torch.from_numpy(rng.integers(0, 100, (1, w["B"], w["S"]))
+                                 .astype(np.int32))
+             for k in ("tokens", "targets")}
+    k = torch.from_numpy(rng.normal(size=(1, w["B"], w["S"], w["hk"],
+                                          w["dh"])).astype(np.float32))
+    q = torch.from_numpy(rng.normal(size=(1, w["B"], w["S"], w["hq"],
+                                          w["dh"])).astype(np.float32))
+
+    def loss(p, b):
+        m = (b["tokens"].float().mean() + 2 * b["targets"].float().mean())
+        out = (p["w"].sum() * m * 0.01) ** 2
+        return out, {"loss": out}
+    eng = HSGD(loss, sgd(0.1), make_topology("two_level", n=4, N=2, G=4,
+                                             I=2),
+               EngineConfig(accum_steps=w["accum"]))
+    opt = {n: t.reshape(1) for n, t in eng.optimizer.init(params).items()}
+    return params, opt, batch, k, q, eng
+
+
+def _repeat_loss(repeat):
+    n_rep = C1_VALUES["hq"] // C1_VALUES["hk"]
+    return torch.func.vmap(torch.func.grad(
+        lambda k, q: torch.tanh(repeat(k, n_rep) * q).sum()))
+
+
+def _c1_plain():
+    params, opt, batch, k, q, eng = _c1_values()
+    new, _, metrics = torch.func.vmap(eng.local_update_fn())(
+        params, opt, batch)
+    return {"microbatches": batch["tokens"][0].reshape(
+                (C1_VALUES["accum"], -1, C1_VALUES["S"])).numpy(),
+            "w": new["w"].numpy(), "loss": metrics["loss"].numpy(),
+            "k_grad": _repeat_loss(lambda k, n: torch.repeat_interleave(
+                k, n, dim=-2))(k, q).numpy()}
+
+
+def _uneven_rank(rank):
+    """One rank of a world of 4 with the meshes ('data',) and ('model',)
+    of 4 each: the microbatches of the batch sharded over 'data', one
+    local update from them, and the repeat's gradient with q's heads
+    sharded over 'model', each back in full."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.core.hsgd import _microbatches
+    from repro_torch.models import layers as L
+    from repro_torch.tree import tree_map
+    torch.set_num_threads(1)
+    data = init_device_mesh("cpu", (4,), mesh_dim_names=("data",))
+    model = init_device_mesh("cpu", (4,), mesh_dim_names=("model",))
+    params, opt, batch, k, q, eng = _c1_values()
+    rep = lambda t: D.place(t, (None,) * t.ndim, data)  # noqa: E731
+    batch = {n: D.place(t, (None, "data", None), data)
+             for n, t in batch.items()}
+    new, _, metrics = D._replicating(torch.func.vmap(eng.local_update_fn()))(
+        tree_map(rep, params), tree_map(rep, opt), batch)
+    k_grad = _repeat_loss(L._gqa_repeat)(
+        D.place(k, (None,) * 5, model),
+        D.place(q, (None, None, None, "model", None), model))
+    mbs = _microbatches(batch["tokens"][0], C1_VALUES["accum"])
+    return {"microbatches": mbs.full_tensor().numpy(),
+            "w": new["w"].full_tensor().numpy(),
+            "loss": metrics["loss"].full_tensor().numpy(),
+            "k_grad": k_grad.full_tensor().numpy()}
+
+
+@pytest.fixture(scope="module")
+def uneven_values():
+    """Rank 0's results of :func:`_uneven_rank` from one launch of 4
+    ``gloo`` ranks, and the plain ops' on the same draws."""
+    return (launch(_uneven_rank, 4, backend="gloo", device="cpu",
+                   timeout=240.0), _c1_plain())
+
+
+def test_microbatches_of_an_unevenly_sharded_batch_run_as_the_plain_split(
+        uneven_values):
+    """On real ranks the split form gives the reference's contiguous
+    microbatches, and the local update from them equals the plain one."""
+    got, want = uneven_values
+    np.testing.assert_array_equal(got["microbatches"], want["microbatches"])
+    for key in ("w", "loss"):
+        np.testing.assert_allclose(got[key], want[key], rtol=0,
+                                   atol=VALUES_ATOL)
+
+
+def test_gqa_repeat_backward_of_unevenly_sharded_heads_runs_as_repeat_interleave(
+        uneven_values):
+    """On real ranks the split form of the repeat's backward sums each kv
+    head's own copies: the gradient equals ``repeat_interleave``'s
+    autograd gradient on the plain tensors."""
+    got, want = uneven_values
+    assert got["k_grad"].shape == want["k_grad"].shape
+    np.testing.assert_allclose(got["k_grad"], want["k_grad"], rtol=0,
+                               atol=VALUES_ATOL)
 
 
 def test_fake_world_is_torn_down_when_the_program_raises():

@@ -85,6 +85,8 @@ def test_importing_the_port_loads_no_jax():
             "from repro_torch.experiments import (fig3_sandwich,\n"
             "    table2_time_to_acc, fig3c_grouping, fig_e4_participation,\n"
             "    fig_e8_multilevel, table1_bounds, plan_deployment)\n"
+            "from repro_torch.examples import (quickstart, multilevel_hsgd,\n"
+            "    population_hsgd, serve_decode, train_hsgd)\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n"
@@ -183,6 +185,26 @@ def test_lm_entry_points_refuse_missing_cuda(no_cuda):
     for call in calls:
         with pytest.raises(RuntimeError, match="cuda"):
             call()
+
+
+def test_examples_refuse_missing_cuda(no_cuda, tmp_path, monkeypatch):
+    """Each twin of ``examples/`` asks for the card unless told
+    ``device="cpu"``, and raises without one, before writing anything
+    (train_hsgd neither to the paths it is given nor to a temporary
+    directory of its own)."""
+    import tempfile
+    from repro_torch.examples import (multilevel_hsgd, population_hsgd,
+                                      quickstart, serve_decode, train_hsgd)
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    paths = {"--ckpt-dir": str(tmp_path / "ckpt"),
+             "--out": str(tmp_path / "out.json")}
+    calls = [quickstart.main, multilevel_hsgd.main, population_hsgd.main,
+             serve_decode.main, lambda: train_hsgd.main(argv_overrides=paths),
+             train_hsgd.main]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
+    assert not any(tmp_path.iterdir())
 
 
 def test_chip_smoke_refuses_without_cuda(no_cuda, tmp_path):
